@@ -1,0 +1,108 @@
+"""Compressed-column ship contract for device-side decode (ROADMAP item 3).
+
+"When Is a Columnar Scan Bandwidth-Bound?" (PAPERS.md) shows columnar
+scans go decode-throughput-bound long before compute-bound: the win is
+not a faster kernel but fewer bytes crossing the PCIe boundary and less
+host-side widening work.  This module is the L1 substrate half of that
+contract — the width/packing helpers both the storage layer (Part.read's
+narrow-code mode) and the query executors (the pad/ship stage feeding
+``ops.decode``'s device kernels) resolve through:
+
+- tag dictionary-code columns keep their *stored* narrow width
+  (i8/i16/i32, utils/encoding.encode_dict_codes downcasts by value) all
+  the way to the device; the widen-to-i32 plus the local->global
+  dictionary remap run as the first stage INSIDE the fused per-chunk
+  kernel (ops.decode.dict_remap) instead of as per-element host numpy;
+- integer-valued field columns ship as the narrowest exact int dtype
+  (i8/i16) and convert to f32 on device — bit-identical to the host
+  f64 -> f32 cast because int -> f32 conversion of values within the
+  narrow range is exact from either source width.
+
+``BYDB_DEVICE_DECODE`` (default on) is the A/B flag with the same
+contract as ``BYDB_FUSED``: flipping it live must be byte-identical on
+partials bytes and result JSON (tests/test_fused_exec.py +
+tests/test_decode.py pin this across every builtin plan signature).
+``BYDB_ZONE_SKIP`` (default on) gates the zone-map block skipping half
+of the same ROADMAP item (storage/part.select_blocks).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from banyandb_tpu_torch.utils.envflag import env_flag
+
+# source-ordinal column dtype: a part-batch never exceeds i16 sources
+SRC_ORD_DTYPE = np.int16
+
+
+def device_decode_enabled() -> bool:
+    """The device-decode A/B flag; default on, read per call so tests
+    and operators can flip it live (same contract as ``BYDB_FUSED``)."""
+    return env_flag("BYDB_DEVICE_DECODE", default=True)
+
+
+def zone_skip_enabled() -> bool:
+    """Zone-map block skipping flag; default on.  Off = every block
+    that survives time/series pruning is still read (the pre-zone-map
+    behavior), which is the parity baseline decode_smoke A/Bs against."""
+    return env_flag("BYDB_ZONE_SKIP", default=True)
+
+
+def code_dtype(dict_len: int) -> np.dtype:
+    """Smallest signed int dtype holding every local code of a
+    ``dict_len``-entry dictionary (codes are 0..dict_len-1; -1/-2/-3
+    sentinels used by the mask kernels also fit every signed width)."""
+    if dict_len <= 1 << 7:
+        return np.dtype(np.int8)
+    if dict_len <= 1 << 15:
+        return np.dtype(np.int16)
+    return np.dtype(np.int32)
+
+
+def narrow_int_dtype(values: np.ndarray):
+    """Narrowest int dtype that round-trips ``values`` exactly through
+    an int -> f32 device conversion, or None when the column must ship
+    dense f32 (non-integral, non-finite, or too wide).
+
+    i8/i16 only: an i32 ship would be the same 4 bytes/row as the dense
+    f32 it replaces, so there is nothing to win past i16."""
+    if values.size == 0:
+        return np.dtype(np.int8)
+    if not np.isfinite(values).all():
+        return None
+    if not (values == np.rint(values)).all():
+        return None
+    if np.signbit(values[values == 0.0]).any():
+        # -0.0 passes the integrality check but would decode to +0.0f,
+        # flipping the f32 sign bit vs the dense ship — not byte-safe
+        return None
+    lo, hi = float(values.min()), float(values.max())
+    if -(1 << 7) <= lo and hi < 1 << 7:
+        return np.dtype(np.int8)
+    if -(1 << 15) <= lo and hi < 1 << 15:
+        return np.dtype(np.int16)
+    return None
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length() if n > 1 else 1
+
+
+def pack_luts(luts) -> np.ndarray:
+    """Stack per-source local->global code LUTs into one ``[S, L]`` i32
+    array with power-of-two padded axes (finite jit shape set).
+
+    Row ``s`` holds source s's LUT; pad entries are 0 and are never
+    indexed by construction (every row's local codes are < that row's
+    real LUT length) — the device gather still clips defensively
+    (ops.decode.dict_remap's OOB guard)."""
+    luts = list(luts)
+    if not luts:
+        return np.zeros((1, 1), dtype=np.int32)
+    s_pad = _pow2(len(luts))
+    l_pad = _pow2(max(max(len(l) for l in luts), 1))
+    out = np.zeros((s_pad, l_pad), dtype=np.int32)
+    for i, lut in enumerate(luts):
+        out[i, : len(lut)] = np.asarray(lut, dtype=np.int32)
+    return out

@@ -1,0 +1,107 @@
+"""One definition of BYDB_* env-flag parsing.
+
+Every BYDB_* on/off switch accepts the same spellings; keeping the
+accepted set in one place stops the copies from drifting (the fourth
+hand-rolled ``_ON`` tuple is where "y" silently works in one module and
+not the next).  Numeric flags parse here too, with one shared
+malformed-value policy: fall back to the default instead of crashing a
+server at boot over a typo'd tuning knob.
+"""
+
+from __future__ import annotations
+
+import os
+
+_ON = ("1", "on", "yes", "true")
+
+
+def env_flag(name: str, default: bool = False) -> bool:
+    """Boolean env flag: unset -> ``default``; set -> value must spell
+    truth (``1/on/yes/true``, case/space-insensitive) to be True."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    return raw.strip().lower() in _ON
+
+
+def env_float(name: str, default: float) -> float:
+    """Float env flag; unset or malformed -> ``default``."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        return float(raw.strip())
+    except ValueError:
+        return default
+
+
+def env_int(name: str, default: int) -> int:
+    """Integer env flag; unset or malformed -> ``default``."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        return int(raw.strip())
+    except ValueError:
+        return default
+
+
+def env_str(name: str, default: str = "") -> str:
+    """String env flag; unset -> ``default`` (set-but-empty is kept:
+    an operator exporting ``BYDB_X=`` explicitly chose empty)."""
+    raw = os.environ.get(name)
+    return default if raw is None else raw
+
+
+# The BYDB_* flag registry: every flag the package reads, one line
+# each.  bdwire's wire-envflag analyzer cross-checks this table against
+# the live env_* call sites AND docs/flags.md, both directions — a flag
+# read without an entry here fails --check, and so does a stale entry.
+FLAGS: dict[str, str] = {
+    "BYDB_AUTOREG": "bool: streamagg auto-registration from query shapes",
+    "BYDB_AUTOREG_BACKOFF_S": "float: autoreg re-proposal backoff",
+    "BYDB_AUTOREG_INTERVAL_S": "float: autoreg scan interval",
+    "BYDB_AUTOREG_MAX_SIGNATURES": "int: autoreg signature cap",
+    "BYDB_AUTOREG_MAX_STATE_MB": "int: autoreg total state budget",
+    "BYDB_AUTOREG_MIN_HITS": "int: query-shape hits before autoreg",
+    "BYDB_COMPILE_CACHE_DIR": "str: persistent XLA compile-cache dir",
+    "BYDB_CONFIG": "str: server config file path (CLI --config wins)",
+    "BYDB_DEVICE_CACHE_BYTES": "int: device-resident block cache budget",
+    "BYDB_DEVICE_DECODE": "bool: decode encoded blocks on-device",
+    "BYDB_FAULTS": "str: fault-injection schedule spec (cluster/faults)",
+    "BYDB_FUSED": "bool: fused scan->aggregate execution",
+    "BYDB_FUSED_MAX_MB": "int: fused-exec working-set ceiling",
+    "BYDB_MAX_PERSISTENT_GROUPS": "int: persistent group-by cardinality cap",
+    "BYDB_PARTIALS_FRAME_V1": "bool: columnar v1 partials wire frame",
+    "BYDB_PIPELINE": "bool: decode/compute pipelining",
+    "BYDB_PLANNER": "bool: cost-based adaptive planner",
+    "BYDB_PRECOMPILE": "bool: kernel precompile pass at startup",
+    "BYDB_PREFETCH_DEPTH": "int: chunk-stream prefetch depth",
+    "BYDB_QOS": "bool: multi-tenant QoS plane",
+    "BYDB_QOS_MAX_QUEUE_S": "float: max admission-queue wait",
+    "BYDB_QOS_QUERY_GLOBAL_MAX": "int: global concurrent-query cap",
+    "BYDB_QOS_TENANTS": "str: per-tenant quota spec list",
+    "BYDB_QOS_TENANT_SEP": "str: group-name -> tenant separator",
+    "BYDB_QUERY_DEADLINE_S": "float: cluster query deadline budget",
+    "BYDB_REPAIR_INTERVAL_S": "float: replica-repair round interval",
+    "BYDB_SANITIZE": "bool: runtime sanitizers (bdsan)",
+    "BYDB_SCAN_CHUNK": "int: measure scan chunk rows",
+    "BYDB_SELF_MEASURE_INTERVAL_S": "float: self-observability interval",
+    "BYDB_SELF_TRACE": "bool: mirror query span trees into _monitoring.self_query",
+    "BYDB_SELF_TRACE_INTERVAL_S": "float: self-trace flush cadence",
+    "BYDB_SELF_TRACE_MS": "float: self-trace sampling threshold (0 = all)",
+    "BYDB_SELF_TRACE_QUEUE": "int: self-trace queue cap (full = shed)",
+    "BYDB_SERVING_CACHE_BYTES": "int: serving-cache byte budget",
+    "BYDB_SERVING_CACHE_CAP": "int: serving-cache entry cap",
+    "BYDB_SLOWLOG_CAPACITY": "int: slow-query recorder ring size",
+    "BYDB_SLOW_QUERY_MS": "float: slow-query threshold",
+    "BYDB_STREAMAGG": "bool: streaming aggregation subsystem",
+    "BYDB_STREAMAGG_AUTOLOAD": "bool: reload streamagg states at boot",
+    "BYDB_STREAMAGG_MAX_WINDOWS": "int: streamagg window cap",
+    "BYDB_STREAMAGG_WINDOW_MS": "int: streamagg default window width",
+    "BYDB_TOPN_VERSION_ROWS": "int: topn version-table row cap",
+    "BYDB_WORKERS": "int: shard worker process count (0 = in-process)",
+    "BYDB_WORKER_FLUSH_S": "float: worker journal flush interval",
+    "BYDB_WORKER_JOURNAL_MB": "int: worker journal size budget",
+    "BYDB_ZONE_SKIP": "bool: zone-map block skipping",
+}

@@ -58,6 +58,11 @@ def pytest_configure(config):
         "slow: long-running E2E; tier-1 runs -m 'not slow' (ROADMAP.md), "
         "fast smoke variants keep the coverage",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (banyandb_tpu_torch kernels); "
+        "skips elsewhere",
+    )
     import subprocess
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

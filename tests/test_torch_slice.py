@@ -1,0 +1,255 @@
+"""Port parity for the slice as a whole: write -> flush -> part read ->
+execute_aggregate, banyandb_tpu_torch against banyandb_tpu on the CPU.
+
+State crosses between the packages only through the on-disk part
+format and the numpy ``ColumnData`` boundary: each package reads the
+other's parts, and both run the query over the same parts.
+
+Tolerances: ``Partials.content_bytes()`` is byte-identical wherever the
+sums are integer-valued (counts, min/max, histograms, rep keys and
+codes always are); the one scenario with a non-integer field
+(percentile-hist) compares its sums within rtol=1e-5
+(tests/test_precision.py) and everything else exactly.
+"""
+
+import dataclasses
+import enum
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from banyandb_tpu.query import measure_exec as jme
+from banyandb_tpu.storage.memtable import MemTable as JMemTable
+from banyandb_tpu.storage.part import ColumnData as JColumnData
+from banyandb_tpu.storage.part import Part as JPart
+from banyandb_tpu.storage.part import PartWriter as JPartWriter
+from banyandb_tpu_torch.api import model as tmodel
+from banyandb_tpu_torch.api import schema as tschema
+from banyandb_tpu_torch.query import measure_exec as tme
+from banyandb_tpu_torch.storage.memtable import MemTable as TMemTable
+from banyandb_tpu_torch.storage.part import Part as TPart
+from banyandb_tpu_torch.storage.part import PartWriter as TPartWriter
+from test_fused_exec import _scenarios
+
+RTOL = 1e-5
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _to_port(obj):
+    """Rebuild a banyandb_tpu.api dataclass tree with the port's classes."""
+    if isinstance(obj, enum.Enum):
+        return getattr(tschema, type(obj).__name__)[obj.name]
+    if dataclasses.is_dataclass(obj):
+        name = type(obj).__name__
+        cls = getattr(tmodel, name, None) or getattr(tschema, name)
+        return cls(**{
+            f.name: _to_port(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init
+        })
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_to_port(x) for x in obj)
+    return obj
+
+
+def _flush(mem_cls, writer_cls, part_dir, src):
+    """Points of one in-memory source -> memtable -> PartWriter."""
+    tags = sorted(src.tags)
+    fields = sorted(src.fields)
+    mem = mem_cls(tags, fields)
+    for i in range(src.ts.shape[0]):
+        mem.append(
+            int(src.ts[i]), int(src.series[i]), int(src.version[i]),
+            {t: src.dicts[t][src.tags[t][i]] for t in tags},
+            {f: float(src.fields[f][i]) for f in fields},
+        )
+    ((_s, cols, extra),) = mem.drain()
+    writer_cls.write(
+        part_dir, ts=cols.ts, series=cols.series, version=cols.version,
+        tag_codes=dict(cols.tags), tag_dicts=dict(cols.dicts),
+        fields=dict(cols.fields), extra_meta=extra,
+    )
+
+
+def _read(part_cls, part_dir, narrow):
+    p = part_cls(part_dir)
+    return p.read(
+        range(len(p.blocks)), tags=p.meta["tags"], fields=p.meta["fields"],
+        narrow_codes=narrow, cached=False,
+    )
+
+
+def _column_bytes(cd) -> list:
+    out = [cd.ts.tobytes(), cd.series.tobytes(), cd.version.tobytes()]
+    for t in sorted(cd.tags):
+        out += [t, cd.tags[t].dtype.str, cd.tags[t].tobytes(), tuple(cd.dicts[t])]
+    for f in sorted(cd.fields):
+        out += [f, cd.fields[f].dtype.str, cd.fields[f].tobytes()]
+    return out
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+def test_parts_cross_read_byte_identical(tmp_path, narrow):
+    """Each package flushes the same points through its memtable and
+    PartWriter; each package's Part.read of the other's part yields
+    byte-identical ColumnData."""
+    rng = np.random.default_rng(1)
+    n = 20000  # three blocks
+    src = JColumnData(
+        ts=1_700_000_000_000 + rng.permutation(n).astype(np.int64),
+        series=rng.integers(0, 50, n).astype(np.int64),
+        version=np.ones(n, np.int64),
+        tags={"svc": rng.integers(0, 300, n).astype(np.int32),
+              "region": rng.integers(0, 4, n).astype(np.int32)},
+        fields={"v": rng.integers(0, 1000, n).astype(np.float64),
+                "lat": rng.gamma(2.0, 40.0, n)},
+        dicts={"svc": [b"s%03d" % i for i in range(300)],
+               "region": [b"r%d" % i for i in range(4)]},
+    )
+    _flush(JMemTable, JPartWriter, tmp_path / "jax", src)
+    _flush(TMemTable, TPartWriter, tmp_path / "torch", src)
+    for name in sorted(os.listdir(tmp_path / "jax")):
+        assert (tmp_path / "jax" / name).read_bytes() == (
+            tmp_path / "torch" / name
+        ).read_bytes(), name
+    want = _column_bytes(_read(JPart, tmp_path / "jax", narrow))
+    assert _column_bytes(_read(TPart, tmp_path / "jax", narrow)) == want
+    assert _column_bytes(_read(JPart, tmp_path / "torch", narrow)) == want
+
+
+@pytest.fixture(scope="module")
+def scenario_parts(tmp_path_factory):
+    """Every fused-exec scenario's source flushed to a part by the JAX
+    package: name -> (jax measure, jax request, part dir)."""
+    root = tmp_path_factory.mktemp("scenario_parts")
+    out = {}
+    for name, m, req, srcs in _scenarios():
+        (src,) = srcs
+        d = root / name
+        JPartWriter.write(
+            d, ts=src.ts, series=src.series, version=src.version,
+            tag_codes=dict(src.tags), tag_dicts=dict(src.dicts),
+            fields=dict(src.fields),
+        )
+        out[name] = (m, req, d)
+    return out
+
+
+def _assert_partials_match(tp, jp, exact: bool):
+    if exact:
+        assert tp.content_bytes() == jp.content_bytes()
+        return
+    assert np.array_equal(tp.codes, jp.codes)
+    assert np.array_equal(tp.count, jp.count)
+    for f in jp.sums:
+        np.testing.assert_allclose(tp.sums[f], jp.sums[f], rtol=RTOL, atol=0)
+        assert np.array_equal(tp.mins[f], jp.mins[f])
+        assert np.array_equal(tp.maxs[f], jp.maxs[f])
+    assert np.array_equal(tp.hist, jp.hist)
+
+
+def _same_result(a, b) -> bool:
+    return (a.groups, a.values, a.rep_tags) == (b.groups, b.values, b.rep_tags)
+
+
+@pytest.mark.parametrize("name", [s[0] for s in _scenarios()])
+@pytest.mark.parametrize("fused", ["1", "0"])
+@pytest.mark.parametrize("device_decode", ["1", "0"])
+def test_aggregate_matches_jax(
+    scenario_parts, name, fused, device_decode, monkeypatch
+):
+    monkeypatch.setenv("BYDB_FUSED", fused)
+    monkeypatch.setenv("BYDB_DEVICE_DECODE", device_decode)
+    m, req, d = scenario_parts[name]
+    narrow = device_decode == "1"
+    jsrc = [_read(JPart, d, narrow)]
+    tsrc = [_read(TPart, d, narrow)]
+    tm, treq = _to_port(m), _to_port(req)
+    jp = jme.compute_partials(m, req, jsrc)
+    tp = tme.compute_partials(tm, treq, tsrc, device="cpu")
+    _assert_partials_match(tp, jp, exact=name != "percentile-hist")
+    jres = jme.execute_aggregate(m, req, jsrc)
+    tres = tme.execute_aggregate(tm, treq, tsrc, device="cpu")
+    assert _same_result(tres, jres)
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_multichunk_matches_jax(scenario_parts, fused, monkeypatch):
+    """A part-batch over four scan chunks: staged and fused, compressed
+    ship form, byte-identical to the JAX package."""
+    monkeypatch.setenv("BYDB_FUSED", fused)
+    monkeypatch.setenv("BYDB_DEVICE_DECODE", "1")
+    monkeypatch.setattr(jme, "SCAN_CHUNK", 2048)
+    monkeypatch.setattr(tme, "SCAN_CHUNK", 2048)
+    m, req, d = scenario_parts["group-eq-lut"]
+    jp = jme.compute_partials(m, req, [_read(JPart, d, True)])
+    tp = tme.compute_partials(_to_port(m), _to_port(req), [_read(TPart, d, True)], device="cpu")
+    assert tp.content_bytes() == jp.content_bytes()
+
+
+def test_entry_points_need_cuda_or_explicit_cpu(scenario_parts, monkeypatch):
+    from banyandb_tpu_torch.query import fused_exec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m, req, d = scenario_parts["flat-count"]
+    src = [_read(TPart, d, False)]
+    for fn in (tme.compute_partials, tme.execute_aggregate):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(_to_port(m), _to_port(req), src)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused_exec.run_fused({}, [(0, 1)], None, {}, 0.0, 1.0, 0)
+
+
+_ISOLATION = textwrap.dedent(
+    """
+    import sys
+    import numpy as np
+    from banyandb_tpu_torch.api.model import GroupBy, QueryRequest, TimeRange
+    from banyandb_tpu_torch.api.schema import (
+        Entity, FieldSpec, FieldType, Measure, TagSpec, TagType)
+    from banyandb_tpu_torch.query.measure_exec import execute_aggregate
+    from banyandb_tpu_torch.storage.part import ColumnData
+
+    n = 4096
+    m = Measure("g", "m", (TagSpec("svc", TagType.STRING),),
+                (FieldSpec("v", FieldType.INT),), Entity(("svc",)))
+    src = ColumnData(
+        ts=np.arange(n, dtype=np.int64), series=np.zeros(n, np.int64),
+        version=np.ones(n, np.int64),
+        tags={"svc": (np.arange(n) % 3).astype(np.int32)},
+        fields={"v": np.ones(n)}, dicts={"svc": [b"a", b"b", b"c"]})
+    req = QueryRequest(("g",), "m", TimeRange(0, n), group_by=GroupBy(("svc",)),
+                       field_projection=("v",))
+    res = execute_aggregate(m, req, [src], device="cpu")
+    assert res.values["count"] == [1366.0, 1365.0, 1365.0], res.values
+    bad = sorted(k for k in sys.modules
+                 if k == "jax" or k.startswith(("jax.", "banyandb_tpu.")))
+    assert not bad, bad
+    print("isolated")
+    """
+)
+
+
+def test_port_imports_neither_jax_nor_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _ISOLATION], env=env, cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "isolated"
+    offenders = []
+    for path in sorted((REPO / "banyandb_tpu_torch").rglob("*.py")):
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            s = line.strip()
+            if s.startswith(("import ", "from ")) and (
+                s.split()[1].split(".")[0] in ("jax", "jaxlib", "banyandb_tpu")
+            ):
+                offenders.append(f"{path.relative_to(REPO)}:{i}: {s}")
+    assert not offenders, offenders
