@@ -7,10 +7,12 @@ rewritten by hand in CUDA C++ (``csrc/``, bound in
 ``jax`` or ``banyandb_tpu``: host-only modules are carried here as
 copies with their imports re-pointed.
 
-The package grows slice by slice.  This slice carries the measure
-aggregate query: write -> flush -> part read -> filter -> group-by ->
-count/sum/min/max, TopN and percentile
-(``query.measure_exec.execute_aggregate``).
+The package grows slice by slice.  It carries the single-node measure
+engine and its BydbQL front end: ``bydbql.parse`` ->
+``models.measure.MeasureEngine.query`` (TSDB shards and segments,
+series index, planner, streaming aggregation) -> the aggregate executor
+(``query.measure_exec``: filter -> group-by -> count/sum/min/max, TopN
+and percentile), and ``ops.delta_decode``.
 
 Dtype policy (the JAX package's 32-bit device contract, carried over):
 int64 quantities (timestamps, series ids, versions) stay on the host as

@@ -9,6 +9,7 @@ scan pipeline.  Gathers clamp out-of-range indices (the JAX package's
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from banyandb_tpu_torch.ops import hopper_kernels
@@ -23,12 +24,15 @@ def delta_decode(first, deltas):
     Narrow i8/i16 payloads widen to i32 first (a narrow cumsum would
     wrap), so the output dtype is max(deltas.dtype, i32).  A concrete
     ``first`` that does not fit the i32 width raises instead of
-    wrapping.  Runs ``torch.cumsum`` on every device: the Hopper kernel
-    for this op (the TPU's prefix_sum_narrow) is not ported yet."""
+    wrapping.  1-D i32 deltas on a CUDA tensor whose length + 1 is a
+    TILE multiple route through the Hopper prefix-sum kernel
+    (ops.hopper_kernels.prefix_sum_narrow), as the JAX package routed
+    that shape class to its Pallas kernel on a TPU; every other shape
+    runs ``torch.cumsum``.  Both wrap mod 2^32 alike."""
     if deltas.dtype in _NARROW:
         deltas = deltas.to(torch.int32)
     if (
-        isinstance(first, int)
+        isinstance(first, (int, np.integer))
         and deltas.dtype == torch.int32
         and not -(2**31) <= first < 2**31
     ):
@@ -37,6 +41,15 @@ def delta_decode(first, deltas):
             "rebase it to an epoch offset (ts - epoch) or pass i64 deltas"
         )
     first = torch.as_tensor(first, dtype=deltas.dtype, device=deltas.device)
+    if (
+        deltas.is_cuda
+        and deltas.dim() == 1
+        and deltas.dtype == torch.int32
+        and (deltas.shape[0] + 1) % hopper_kernels.TILE == 0
+    ):
+        return hopper_kernels.prefix_sum_narrow(
+            torch.cat([first.reshape(1), deltas])
+        )
     rest = first[..., None] + torch.cumsum(deltas, dim=-1, dtype=deltas.dtype)
     head = first[..., None].expand(rest.shape[:-1] + (1,))
     return torch.cat([head, rest], dim=-1)

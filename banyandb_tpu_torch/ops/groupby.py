@@ -4,7 +4,8 @@ Tags are dictionary codes, so a group key is a *mixed-radix* int32
 composed from the code columns, bounded by the product of dictionary
 sizes.  Aggregation is then a dense segment reduction:
 
-- ``scatter``: ``index_add_`` segment sums (Kahan-tiled past 65536 rows).
+- ``scatter``: segment sums by ``index_put_(accumulate=True)``
+  (Kahan-tiled past 65536 rows).
 - ``matmul``: one-hot(keys) @ values in one shot, in full f32 (TF32 is
   off, backend.py).
 - ``matmul_tiled``: one-hot contractions over 8192-row tiles, the tile
@@ -139,7 +140,7 @@ def _tiled_segment_sums(kp, vp, fp, num_groups: int) -> torch.Tensor:
         (rows.shape[0], tiles * g1), dtype=torch.float32, device=kp.device
     )
     for i in range(rows.shape[0]):
-        out[i].index_add_(0, slot, rows[i].reshape(-1))
+        out[i].index_put_((slot,), rows[i].reshape(-1), accumulate=True)
     return out.view(rows.shape[0], tiles, g1)
 
 
@@ -175,12 +176,18 @@ def _scatter_reduce(
     masked_fields: Mapping[str, torch.Tensor],
     num_groups: int,
 ):
-    """count/sums via ``index_add_``, Kahan-tiled beyond the span bound.
+    """count/sums via ``index_put_(accumulate=True)``, Kahan-tiled
+    beyond the span bound.
 
     Shared by the hash (``scatter``) and segment-sort (``sort``) paths:
-    fields arrive pre-masked (col * validf).  On a CUDA tensor,
-    ``index_add_`` adds floats atomically, so non-integer sums may differ
-    in the last bits from run to run; integer-valued sums are exact.
+    fields arrive pre-masked (col * validf).  No float atomics: on a
+    CUDA tensor ``index_put_`` with ``accumulate=True`` stable-sorts the
+    slots and sums each slot's rows one after another in row order (on
+    the CPU it adds the rows in order), so every run gives the same bits
+    — the JAX package's contract that ``sort`` keeps per-group
+    accumulation in row order, bit-identical to ``scatter``.
+    (``index_add_`` would add atomically on the card, in an order that
+    changes from run to run.)
     """
     CHUNK = 65536
     if safe_key.shape[-1] <= CHUNK:
@@ -189,7 +196,7 @@ def _scatter_reduce(
 
         def seg(v):
             out = torch.zeros(num_groups + 1, dtype=torch.float32, device=dev)
-            return out.index_add_(0, idx, v)[:num_groups]
+            return out.index_put_((idx,), v, accumulate=True)[:num_groups]
 
         return seg(validf), {nm: seg(col) for nm, col in masked_fields.items()}
 

@@ -18,12 +18,12 @@ into one shared library with a plain C interface under ``_build/``
 (one ``nvcc -c`` per source, all started together, then one link), and
 bound with ``ctypes``.  Each C entry returns ``cudaGetLastError()``.
 
-``fused_group_multi`` replaces pallas_kernels.py::fused_group_multi and
-``widen_narrow`` replaces pallas_kernels.py::widen_narrow; what bounds
-each on the card and how the design answers it is in the note at the
-top of its source (csrc/fused_group.cu, csrc/widen.cu).
-``prefix_sum_narrow`` is not ported yet: ``ops.decode.delta_decode``
-runs ``torch.cumsum`` on every device.
+``fused_group_multi`` replaces pallas_kernels.py::fused_group_multi,
+``widen_narrow`` replaces pallas_kernels.py::widen_narrow and
+``prefix_sum_narrow`` replaces pallas_kernels.py::prefix_sum_narrow;
+what bounds each on the card and how the design answers it is in the
+note at the top of its source (csrc/fused_group.cu, csrc/widen.cu,
+csrc/prefix_sum.cu).
 """
 
 from __future__ import annotations
@@ -50,13 +50,18 @@ _SMEM_BUDGET = 96 << 10
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-SOURCES = ("fused_group.cu", "widen.cu")
+SOURCES = ("fused_group.cu", "widen.cu", "prefix_sum.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"fused_group_multi": 0, "widen_narrow": 0}
+LAUNCHES = {
+    "fused_group_multi": 0,
+    "fused_group_sum": 0,
+    "widen_narrow": 0,
+    "prefix_sum_narrow": 0,
+}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -143,6 +148,8 @@ def build() -> float:
         ]
         lib.bydb_widen_narrow.restype = i
         lib.bydb_widen_narrow.argtypes = [p, i, ll, p, i, p]
+        lib.bydb_prefix_sum_narrow.restype = i
+        lib.bydb_prefix_sum_narrow.argtypes = [p, ll, p, p, i, p]
         _lib = lib
     return time.perf_counter() - t0
 
@@ -253,6 +260,8 @@ def fused_group_sum(codes, pred_mask, values, valid, *, num_groups: int):
     count, sums = fused_group_multi(
         codes, pred_mask, values.reshape(1, -1), valid, num_groups=num_groups
     )
+    if codes.is_cuda and codes.shape[0]:
+        LAUNCHES["fused_group_sum"] += 1
     return count, sums[0]
 
 
@@ -287,4 +296,47 @@ def widen_narrow(x):
     )
     _check_rc(rc, "widen_narrow")
     LAUNCHES["widen_narrow"] += 1
+    return out
+
+
+# -- prefix_sum_narrow --------------------------------------------------------
+
+
+def prefix_sum_narrow_plain(x):
+    """Plain PyTorch version: per-TILE inclusive sums plus the carry of
+    the tiles before, in i64, wrapped back to i32 (mod 2^32)."""
+    tiles = x.shape[0] // TILE
+    v = x.view(tiles, TILE).to(torch.int64).cumsum(1)
+    carry = torch.cumsum(v[:, -1], 0) - v[:, -1]
+    v = (v + carry[:, None] + 2**31).remainder(2**32) - 2**31
+    return v.to(torch.int32).reshape(-1)
+
+
+def prefix_sum_narrow(x):
+    """Inclusive i32 prefix sum of [N] (N a multiple of TILE), wrapping
+    mod 2^32.  With x[0] = first and x[1:] = deltas, the output is the
+    decoded series."""
+    if x.dim() != 1:
+        raise ValueError(
+            f"prefix_sum_narrow takes 1-D input, got {tuple(x.shape)}"
+        )
+    n = x.shape[0]
+    if n % TILE:
+        raise ValueError(f"N={n} must be a multiple of {TILE}")
+    _expect(x, "x", torch.int32, (n,), x.device)
+    if x.device.type != "cuda":
+        return prefix_sum_narrow_plain(x)
+    if x.data_ptr() % 16:
+        raise ValueError("prefix_sum_narrow: input not 16-byte aligned")
+    out = torch.empty(n, dtype=torch.int32, device=x.device)
+    if n == 0:
+        return out
+    build()
+    scratch = torch.empty(n // TILE, dtype=torch.int32, device=x.device)
+    rc = _lib.bydb_prefix_sum_narrow(
+        x.data_ptr(), n, scratch.data_ptr(), out.data_ptr(), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _check_rc(rc, "prefix_sum_narrow")
+    LAUNCHES["prefix_sum_narrow"] += 1
     return out

@@ -1,0 +1,944 @@
+"""Cost-based adaptive query planner + self-driving materialization.
+
+Closes the loop between the observability plane and the execution plane
+(ROADMAP item 5, the Enthuse adaptability thesis — PAPERS.md
+arXiv 2405.18168): the engine has four ways to answer an aggregate
+(streamagg window fold, serving-cache replay, zone-skipped fused scan,
+full scan) and this module makes the CHOICE evidence-driven instead of
+hardwired flag-priority.
+
+Two cooperating halves:
+
+1. **Cost-based scan planning** (``plan_scan`` / ``PlanDecision``,
+   ``BYDB_PLANNER`` A/B flag, default on): before the gather, estimate
+   per-part selectivity and surviving rows from metadata that is
+   ALREADY in memory — per-block zone maps (tag local-code ranges +
+   row counts, written at flush and merge), per-part dictionary
+   radices and per-part row counts — then
+
+   - choose the group-by strategy through
+     ``ops.groupby.select_group_method`` from the *estimated distinct
+     group count* instead of the static radix product (the
+     hash-vs-sort crossover of arXiv 2411.13245 keys on REAL group
+     cardinality; a sparse cross product of two large dictionaries
+     must hash, not sort),
+   - pick the fused chunk schedule: the chunk-count bucket is rounded
+     UP to the estimate's bucket (signature stability — a dashboard
+     whose part population oscillates around a bucket boundary keeps
+     ONE compiled program), and a part-batch whose *estimated*
+     stacked footprint exceeds ``BYDB_FUSED_MAX_MB`` is routed
+     straight to the staged loop,
+   - skip the zone-map pre-pass entirely when estimated selectivity
+     is ~1 (``ZONE_SKIP_MIN_SELECTIVITY``): lowering predicates onto
+     every part dictionary and interval-checking every block is pure
+     planner-path overhead when nothing will be skipped.
+
+   Every decision is **result-preserving by construction**: group
+   methods are bit-identical within the span bound (ops/groupby
+   contract), a larger chunk bucket only adds fully-invalid padding
+   chunks the host never absorbs, and the zone pre-pass only ever
+   *removes reads of non-matching blocks* — so ``BYDB_PLANNER=0/1``
+   result JSON is byte-identical (pinned across every builtin
+   signature by tests/test_planner.py).  The decision + estimates ride
+   the span tree (``planner`` span: ``path``, ``est_rows`` vs
+   ``actual_rows``, ``est_groups``, ``group_method``,
+   ``zone_prepass``) and ``planner_decisions_total{path}``.
+
+2. **Auto-registration** (``AutoRegistrar``, the ``bydb-autoreg``
+   loop, ``BYDB_AUTOREG`` flag): mines the query-signature evidence
+   the obs plane already collects — the slowlog recorder's signature
+   stats (every measure query, obs/recorder.SignatureStats) and the
+   plan precompile registry's recorded (spec, measure-context, hits)
+   population — for hot streamagg-ELIGIBLE signatures (pure-AND
+   eq/ne/in/not_in predicates, group-by ⊆ key tags, covered
+   aggregates) and registers materialized rolling windows for them
+   through the same ``streamagg`` control surface operators use.
+   Budgeted: at most ``BYDB_AUTOREG_MAX_SIGNATURES`` auto
+   registrations and ``BYDB_AUTOREG_MAX_STATE_MB`` of estimated
+   window-state memory; past either bound the least-recently-HIT auto
+   signature is evicted first, and manual registrations are never
+   auto-evicted.  Per-signature hit/age stats persist to
+   ``<root>/autoreg.json`` so a restart resumes with yesterday's
+   evidence instead of re-learning the dashboard population from
+   scratch.  ``autoreg_signatures{source}`` gauges the split.
+
+Everything here is host-side metadata work — the planner dispatches
+ZERO device kernels by design (the streamagg-ingest host-only budget
+exemption applies identically; pinned by
+tests/test_planner.py::test_planner_path_is_host_only).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import threading
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Callable, Optional
+
+from banyandb_tpu_torch.utils.envflag import env_flag, env_float, env_int
+
+log = logging.getLogger("banyandb.planner")
+
+# estimated-selectivity floor above which the zone-map pre-pass is
+# skipped: when ~every block would survive anyway, the per-part dict
+# lowering + per-block interval checks are pure overhead
+ZONE_SKIP_MIN_SELECTIVITY = 0.9
+
+
+def enabled() -> bool:
+    """The cost-based-planning A/B flag (read per query so operators can
+    flip it live; ``BYDB_PLANNER=0`` restores the pre-planner fixed
+    thresholds — results byte-identical either way)."""
+    return env_flag("BYDB_PLANNER", default=True)
+
+
+def autoreg_enabled() -> bool:
+    return env_flag("BYDB_AUTOREG", default=True)
+
+
+# ---------------------------------------------------------------------------
+# Conjunctive-predicate lowering (shared with the zone-skip gather path)
+# ---------------------------------------------------------------------------
+# Moved here from models/measure so the planner (query layer) never
+# imports upward into the engines layer; models/measure re-exports them.
+
+
+def conjunctive_eq_conditions(req):
+    """[(tag, [byte values])] from eq/in conditions that are REQUIRED
+    (pure-AND criteria tree).  Any OR anywhere disables zone pruning —
+    a disjunct must never skip blocks its sibling could match."""
+    from banyandb_tpu_torch.query import measure_exec
+
+    try:
+        conds = measure_exec._collect_conditions(req.criteria)
+    except NotImplementedError:
+        return []
+    out = []
+    for c in conds:
+        try:
+            if c.op == "eq":
+                out.append((c.name, [measure_exec._tag_value_bytes(c.value)]))
+            elif c.op == "in":
+                out.append(
+                    (c.name, [measure_exec._tag_value_bytes(v) for v in c.value])
+                )
+        except TypeError:
+            continue  # unsupported literal type: no pruning on this cond
+    return out
+
+
+def part_zone_preds(part, zone_conds) -> list:
+    """Lower conjunctive eq/in tag conditions onto ONE part's local
+    dictionary -> zone_preds for select_blocks.
+
+    The zone maps store per-block LOCAL code ranges, so each predicate
+    value resolves to this part's local code first.  A part whose
+    dictionary holds NONE of a required predicate's values cannot match
+    at all — expressed as an EMPTY allowed set, which marks every block
+    (select_blocks still applies the dedup-safety overlap check before
+    any block actually skips).  A tag column absent from the part
+    entirely means every row carries the implicit empty value, so only
+    an explicit empty-value predicate can match.
+    """
+    import numpy as np
+
+    if not zone_conds:
+        return []
+    none_match = [("*", np.zeros(0, dtype=np.int64))]
+    preds: list = []
+    part_tags = set(part.meta.get("tags", ()))
+    for name, values in zone_conds:
+        if name not in part_tags:
+            # schema evolution: rows carry the empty value for this tag
+            if b"" not in values:
+                return none_match
+            continue
+        lut = part.dict_index(name)  # cached reverse map
+        codes = sorted({lut[v] for v in values if v in lut})
+        if not codes:
+            return none_match
+        preds.append((f"tag_{name}", np.asarray(codes, dtype=np.int64)))
+    return preds
+
+
+# ---------------------------------------------------------------------------
+# Cost model: scan estimation from on-disk metadata already in memory
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ScanEstimate:
+    """Pre-gather estimate for one aggregate scan."""
+
+    rows: int = 0  # candidate rows in range (post series/time pruning)
+    scan_rows: int = 0  # est rows the gather will materialize (zone pass)
+    surviving_rows: int = 0  # est rows surviving predicates
+    groups: int = 1  # est distinct group count
+    static_groups: int = 1  # the radix product the executor would use
+    bytes: int = 0  # est surviving column bytes shipped
+    selectivity: float = 1.0  # surviving_rows / rows
+    parts: int = 0
+    blocks: int = 0
+    zone_markable_rows: int = 0  # rows in blocks the zone maps can prove away
+
+
+@dataclass
+class PlanDecision:
+    """The planner's execution hints for one query.  Every field is a
+    RESULT-PRESERVING refinement (see module docstring); ``None`` /
+    default means "keep the executor's own choice"."""
+
+    est: ScanEstimate = field(default_factory=ScanEstimate)
+    path: str = "scan"  # materialized | fused | staged | raw
+    group_method: Optional[str] = None  # select_group_method override
+    zone_prepass: bool = True  # lower zone preds + run the block pre-pass
+    chunk_bucket: Optional[int] = None  # min fused chunk-count bucket
+    prefer_staged: bool = False  # est footprint exceeds the fused budget
+    actual_rows: Optional[int] = None  # written back by compute_partials
+
+    def span_tags(self, span) -> None:
+        if span is None:
+            return
+        e = self.est
+        # est_rows predicts what the gather materializes (time + zone
+        # pruning) — directly comparable with the actual_rows written
+        # back by compute_partials; the predicate-surviving estimate
+        # rides separately as est_surviving
+        span.tag("path", self.path).tag("est_rows", int(e.scan_rows)).tag(
+            "est_surviving", int(e.surviving_rows)
+        ).tag(
+            "est_groups", int(e.groups)
+        ).tag("selectivity", round(e.selectivity, 4)).tag(
+            "zone_prepass", bool(self.zone_prepass)
+        ).tag("group_method", self.group_method or "auto").tag(
+            "parts", e.parts
+        )
+
+
+def _part_pred_selectivity(part, zone_conds) -> float:
+    """Within-part match fraction for conjunctive eq/in predicates,
+    from dictionary coverage: |predicate values present in the part
+    dict| / dict size per predicate, multiplied (independence).  A
+    value missing from every dict makes the part unmatchable (0.0)."""
+    sel = 1.0
+    part_tags = set(part.meta.get("tags", ()))
+    for name, values in zone_conds:
+        if name not in part_tags:
+            # schema evolution: all rows carry the empty value
+            sel *= 1.0 if b"" in values else 0.0
+            continue
+        idx = part.dict_index(name)
+        if not idx:
+            sel *= 0.0
+            continue
+        hit = sum(1 for v in values if v in idx)
+        sel *= min(hit / max(len(idx), 1), 1.0)
+    return max(min(sel, 1.0), 0.0)
+
+
+def _part_zone_rows(part, begin_ms: int, end_ms: int, zone_conds) -> tuple:
+    """(candidate_rows, zone_surviving_rows, blocks) for one part: rows
+    in blocks overlapping the time range, and rows in the subset of
+    those blocks whose zone maps admit every predicate (the dedup-
+    safety gate can only KEEP more — this is the optimistic skip
+    estimate, which is exactly what a cost model wants)."""
+    cand = surv = blocks = 0
+    preds = part_zone_preds(part, zone_conds) if zone_conds else []
+    for b in part.blocks:
+        if not (b["min_ts"] < end_ms and begin_ms <= b["max_ts"]):
+            continue
+        cnt = int(b["count"])
+        cand += cnt
+        blocks += 1
+        zones = b.get("zones")
+        keep = True
+        if preds and zones:
+            import numpy as np
+
+            for col, allowed in preds:
+                if not len(allowed):
+                    keep = False
+                    break
+                z = zones.get(col)
+                if z is None:
+                    continue
+                lo, hi = z
+                j = int(np.searchsorted(allowed, lo))
+                if j >= len(allowed) or allowed[j] > hi:
+                    keep = False
+                    break
+        elif preds and not zones:
+            keep = True  # pre-upgrade part: never skippable
+        if keep:
+            surv += cnt
+    return cand, surv, blocks
+
+
+def estimate_scan(engine, db, m, req) -> ScanEstimate:
+    """Walk segment/shard/part METADATA (no column reads, no locks
+    beyond the part-list snapshot) and estimate the scan.
+
+    Inputs are all already resident: the per-part block index
+    (``Part.blocks`` incl. zone maps), per-part dictionaries
+    (``dict_index``, cached), memtable row counts."""
+    est = ScanEstimate()
+    zone_conds = conjunctive_eq_conditions(req)
+    begin = req.time_range.begin_millis
+    end = req.time_range.end_millis
+    group_tags = tuple(req.group_by.tag_names) if req.group_by else ()
+    # per group tag: union cardinality is unknown pre-gather; the SUM of
+    # per-part dict sizes is an upper bound that stays tight for the
+    # dashboard shape (parts of one measure share value populations, so
+    # we also track the per-part MAX as the optimistic bound and take
+    # the geometric middle)
+    tag_sum = {t: 0 for t in group_tags}
+    tag_max = {t: 1 for t in group_tags}
+    scan_rows_total = 0  # rows surviving the zone pass (gather size)
+    zone_surv_total = 0  # ... further scaled by predicate selectivity
+    for seg in db.select_segments(begin, end):
+        for shard in seg.shards:
+            for mem_cols in shard.hot_columns(m.name):
+                n = int(mem_cols.ts.size)
+                est.rows += n
+                scan_rows_total += n  # memtable rows never zone-skip
+                zone_surv_total += n
+                for t in group_tags:
+                    col = mem_cols.tags.get(t)
+                    d = mem_cols.dicts.get(t) if col is not None else None
+                    sz = len(d) if d is not None else 1
+                    tag_sum[t] += sz
+                    tag_max[t] = max(tag_max[t], sz)
+            for part in shard.parts:
+                if part.meta.get("measure") != m.name:
+                    continue
+                cand, zone_surv, blocks = _part_zone_rows(
+                    part, begin, end, zone_conds
+                )
+                if cand == 0:
+                    continue
+                est.parts += 1
+                est.blocks += blocks
+                est.rows += cand
+                sel = (
+                    _part_pred_selectivity(part, zone_conds)
+                    if zone_conds
+                    else 1.0
+                )
+                scan_rows_total += zone_surv if zone_conds else cand
+                zone_surv_total += int(zone_surv * sel) if zone_conds else cand
+                for t in group_tags:
+                    sz = len(part.dict_for(t)) or 1
+                    tag_sum[t] += sz
+                    tag_max[t] = max(tag_max[t], sz)
+    est.scan_rows = min(scan_rows_total, est.rows)
+    est.surviving_rows = min(zone_surv_total, est.rows)
+    est.zone_markable_rows = est.rows - est.scan_rows
+    est.selectivity = (
+        est.surviving_rows / est.rows if est.rows else 1.0
+    )
+    static = 1
+    groups = 1
+    for t in group_tags:
+        # geometric middle of [per-part max, cross-part sum]: the union
+        # is at least the largest single dictionary and at most the sum
+        hi = max(tag_sum[t], 1)
+        lo = tag_max[t]
+        static *= hi
+        groups *= int(max((lo * hi) ** 0.5, 1))
+    est.static_groups = static
+    # distinct groups can never exceed surviving rows
+    est.groups = max(min(groups, max(est.surviving_rows, 1)), 1)
+    # ship bytes: 4 B/row per column (i32 codes / f32 fields) over the
+    # predicate+group tag set and the aggregate field, sized by what
+    # the gather will actually materialize (predicates mask on device,
+    # they don't shrink the ship) — the planner only needs the ORDER
+    # of magnitude for the fused-footprint call
+    ncols = 4 + len(
+        {c for c, _ in zone_conds} | set(group_tags)
+    ) + 1
+    est.bytes = est.scan_rows * 4 * ncols
+    return est
+
+
+def plan_scan(engine, db, m, req, span=None) -> Optional[PlanDecision]:
+    """The cost-based pre-gather decision for one aggregate query; None
+    when the planner flag is off (executors keep their fixed-threshold
+    behavior).  Tags the ``planner`` span and counts the decision."""
+    if not enabled():
+        return None
+    from banyandb_tpu_torch import ops
+    from banyandb_tpu_torch.query import measure_exec
+
+    est = estimate_scan(engine, db, m, req)
+    d = PlanDecision(est=est)
+
+    # zone pre-pass: skip when the maps cannot prove enough away — the
+    # relevant fraction is what the BLOCK pass could remove (scan_rows),
+    # not within-block predicate selectivity (which only the kernel's
+    # mask applies)
+    zone_frac = est.scan_rows / est.rows if est.rows else 1.0
+    d.zone_prepass = zone_frac < ZONE_SKIP_MIN_SELECTIVITY
+
+    # group-by strategy from ESTIMATED distinct groups: only override
+    # when the estimate lands on the other side of the crossover from
+    # the static radix product (otherwise keep "auto" so the plan
+    # signature — and with it the precompile/budget population —
+    # stays exactly the pre-planner one)
+    # (the port's policy depends on the group count alone)
+    static_method = ops.groupby.select_group_method(
+        max(est.static_groups, 1)
+    )
+    est_method = ops.groupby.select_group_method(est.groups)
+    if est_method != static_method:
+        d.group_method = est_method
+
+    # fused chunk schedule from estimated surviving bytes
+    from banyandb_tpu_torch.query import fused_exec
+
+    est_chunks = max(
+        -(-max(est.scan_rows, 1) // measure_exec.SCAN_CHUNK), 1
+    )
+    d.chunk_bucket = fused_exec.chunk_count_bucket(est_chunks)
+    d.prefer_staged = (
+        est.bytes > fused_exec.max_fused_mb() * (1 << 20)
+    )
+    d.path = "staged" if d.prefer_staged else "fused"
+    d.span_tags(span)
+    return d
+
+
+def record_decision(path: str) -> None:
+    """``planner_decisions_total{path}``: one increment per planned
+    query, path ∈ materialized|fused|staged|raw|off."""
+    from banyandb_tpu_torch.obs import metrics as obs_metrics
+
+    obs_metrics.global_meter().counter_add(
+        "planner_decisions", 1.0, {"path": path}
+    )
+
+
+# ---------------------------------------------------------------------------
+# Streamagg eligibility: one shape test shared by mining surfaces
+# ---------------------------------------------------------------------------
+
+_COVERED_OPS = ("eq", "ne", "in", "not_in")
+_COVERED_AGGS = ("count", "sum", "mean", "min", "max")
+
+
+def signature_of(req) -> Optional[tuple]:
+    """(group, measure, key_tags, fields) when `req` is a streamagg-
+    ELIGIBLE aggregate (pure-AND eq/ne/in/not_in predicates, group-by
+    tags only, covered aggregate, no percentile/OR/order-by-tag), else
+    None.  The registration itself re-validates against the schema —
+    this is the cheap mining-side shape test."""
+    from banyandb_tpu_torch.query import measure_exec
+
+    if not req.groups or not req.name:
+        return None
+    if req.group_by is not None and req.group_by.field_name:
+        return None
+    agg = req.agg
+    if agg is not None and agg.function not in _COVERED_AGGS:
+        return None
+    if agg is None and not req.top:
+        return None  # raw-row queries have no fold
+    try:
+        conds, expr = measure_exec._lower_criteria(req.criteria)
+    except (ValueError, NotImplementedError):
+        return None
+    if expr:
+        return None
+    for c in conds:
+        if c.op not in _COVERED_OPS:
+            return None
+    group_tags = tuple(req.group_by.tag_names) if req.group_by else ()
+    key_tags = tuple(
+        sorted(set(group_tags) | {c.name for c in conds})
+    )
+    fields: set = set()
+    if agg:
+        fields.add(agg.field_name)
+    if req.top:
+        fields.add(req.top.field_name)
+    if not key_tags or not fields:
+        return None
+    return (req.groups[0], req.name, key_tags, tuple(sorted(fields)))
+
+
+def signature_from_spec(spec, context) -> Optional[tuple]:
+    """The plan-registry twin of :func:`signature_of`: derive an
+    eligible (group, measure, key_tags, fields) from a recorded measure
+    ``PlanSpec`` plus its (group, measure) context."""
+    if context is None:
+        return None
+    group, measure = context
+    if spec.hist_field or spec.expr:
+        return None
+    for p in spec.preds:
+        if p.kind != "code" or p.op not in _COVERED_OPS:
+            return None
+    key_tags = tuple(
+        sorted(set(spec.group_tags) | {p.name for p in spec.preds})
+    )
+    if not key_tags or not spec.fields:
+        return None
+    return (group, measure, key_tags, tuple(spec.fields))
+
+
+# ---------------------------------------------------------------------------
+# Auto-registration: the bydb-autoreg loop
+# ---------------------------------------------------------------------------
+
+
+def autoreg_max_signatures() -> int:
+    return env_int("BYDB_AUTOREG_MAX_SIGNATURES", 8)
+
+
+def autoreg_max_state_mb() -> int:
+    return env_int("BYDB_AUTOREG_MAX_STATE_MB", 64)
+
+
+def autoreg_interval_s() -> float:
+    return env_float("BYDB_AUTOREG_INTERVAL_S", 2.0)
+
+
+def autoreg_min_hits() -> int:
+    """Evidence threshold: a signature registers once it has been asked
+    this many times (a dashboard refreshing every few seconds crosses
+    it within one autoreg interval)."""
+    return env_int("BYDB_AUTOREG_MIN_HITS", 3)
+
+
+def autoreg_backoff_s() -> float:
+    """Base re-registration backoff after a budget eviction (doubles
+    per repeated eviction of the same signature, capped at one hour):
+    a signature whose window state blows the MB budget must not
+    register-evict-register every tick while its queries keep
+    generating evidence."""
+    return env_float("BYDB_AUTOREG_BACKOFF_S", 60.0)
+
+
+# estimated bytes per materialized window STATE (acc list + key tuple +
+# interning overhead), used for the MB budget — deliberately
+# conservative (CPython list-of-floats + tuple + dict slots)
+_STATE_BYTES = 640
+
+
+class AutoRegistrar:
+    """The ``bydb-autoreg`` background loop.
+
+    Dependency-injected so every serving topology reuses it: the server
+    passes ``register_fn``/``unregister_fn`` that route through its own
+    ``streamagg`` control surface (engine-direct standalone, broadcast
+    in worker-pool mode) and ``stats_fn`` returning the live
+    ``StreamAggRegistry.stats()['signatures']`` rows (which carry
+    hits / last-hit / state counts / origin).
+
+    Evidence sources (mined each tick):
+    - ``sig_stats`` — obs/recorder.SignatureStats, fed by the server's
+      query epilogue (the slowlog plane: every measure query, not just
+      slow ones, with slow queries double-weighted);
+    - the plan precompile registry's recorded signatures + measure
+      contexts (``evidence()``), covering embedded/engine-level
+      callers that never cross a server epilogue.
+
+    State (``<root>/autoreg.json``): per-signature cumulative hits,
+    first/last-seen wall ms, and which signatures THIS loop registered
+    (the auto set) — so a restart neither re-learns from zero nor
+    mistakes a manual registration for its own.
+    """
+
+    def __init__(
+        self,
+        store_path,
+        *,
+        sig_stats=None,
+        register_fn: Callable[[str, str, tuple, tuple], dict],
+        unregister_fn: Callable[[str, str, tuple, tuple], bool],
+        stats_fn: Callable[[], list],
+        plan_registry=None,
+        interval_s: Optional[float] = None,
+    ):
+        self.store = Path(store_path)
+        self.sig_stats = sig_stats
+        self.register_fn = register_fn
+        self.unregister_fn = unregister_fn
+        self.stats_fn = stats_fn
+        self.plan_registry = plan_registry
+        self.interval_s = (
+            interval_s if interval_s is not None else autoreg_interval_s()
+        )
+        self._lock = threading.Lock()
+        # sig key (group, measure, key_tags, fields) -> evidence record
+        self._hits: dict[tuple, dict] = {}
+        self._auto: set[tuple] = set()  # signatures THIS loop registered
+        self._last_counts: dict[tuple, int] = {}  # mining deltas
+        self._thread: Optional[threading.Thread] = None
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self.registered_total = 0
+        self.evicted_total = 0
+        self.errors = 0
+        self._load()
+
+    # -- persistence ---------------------------------------------------------
+    @staticmethod
+    def _key_to_json(key: tuple) -> dict:
+        g, m, tags, fields = key
+        return {
+            "group": g,
+            "measure": m,
+            "key_tags": list(tags),
+            "fields": list(fields),
+        }
+
+    @staticmethod
+    def _key_from_json(d: dict) -> tuple:
+        return (
+            d["group"],
+            d["measure"],
+            tuple(d["key_tags"]),
+            tuple(d["fields"]),
+        )
+
+    def _load(self) -> None:
+        try:
+            if not self.store.exists():
+                return
+            doc = json.loads(self.store.read_text())
+        except (OSError, ValueError):
+            return
+        with self._lock:
+            for rec in doc.get("signatures", []):
+                try:
+                    key = self._key_from_json(rec)
+                except KeyError:
+                    continue
+                self._hits[key] = {
+                    "hits": int(rec.get("hits", 0)),
+                    "first_ms": int(rec.get("first_ms", 0)),
+                    "last_ms": int(rec.get("last_ms", 0)),
+                }
+                for extra in ("evictions", "backoff_until_ms"):
+                    if rec.get(extra):
+                        self._hits[key][extra] = int(rec[extra])
+                if rec.get("auto"):
+                    self._auto.add(key)
+
+    def _save_locked(self) -> None:
+        doc = {
+            "signatures": [
+                {
+                    **self._key_to_json(key),
+                    **rec,
+                    "auto": key in self._auto,
+                }
+                for key, rec in self._hits.items()
+            ]
+        }
+        try:
+            self.store.parent.mkdir(parents=True, exist_ok=True)
+            tmp = self.store.with_suffix(".tmp")
+            tmp.write_text(json.dumps(doc, indent=1))
+            import os
+
+            os.replace(tmp, self.store)
+        except OSError:
+            pass  # evidence persistence is an optimization
+
+    # -- mining --------------------------------------------------------------
+    def _note(self, key: tuple, hits: int, now_ms: int) -> None:
+        rec = self._hits.get(key)
+        if rec is None:
+            rec = self._hits[key] = {
+                "hits": 0, "first_ms": now_ms, "last_ms": now_ms,
+            }
+        rec["hits"] += hits
+        rec["last_ms"] = now_ms
+
+    def _note_evicted(self, key: tuple) -> None:
+        """Stamp an eviction: the signature re-registers only after an
+        exponential backoff (doubling per eviction, 1 h cap) — without
+        it, a budget-blowing signature whose queries keep generating
+        evidence would register-evict-register every tick."""
+        with self._lock:
+            rec = self._hits.get(key)
+            if rec is None:
+                return
+            n = int(rec.get("evictions", 0)) + 1
+            rec["evictions"] = n
+            backoff_ms = min(
+                autoreg_backoff_s() * (2 ** (n - 1)), 3600.0
+            ) * 1000.0
+            rec["backoff_until_ms"] = int(
+                time.time() * 1000 + backoff_ms
+            )
+
+    def mine(self) -> None:
+        """Fold fresh evidence from both obs surfaces into the hit
+        table (delta-based: each source's cumulative counters are
+        diffed against the last tick)."""
+        now_ms = int(time.time() * 1000)
+        with self._lock:
+            if self.sig_stats is not None:
+                for key, count in self.sig_stats.snapshot().items():
+                    prev = self._last_counts.get(("sig", key), 0)
+                    if count > prev:
+                        self._note(key, count - prev, now_ms)
+                        self._last_counts[("sig", key)] = count
+            if self.plan_registry is not None:
+                for kind, spec, count, ctx in self.plan_registry.evidence():
+                    if kind != "measure":
+                        continue
+                    key = signature_from_spec(spec, ctx)
+                    if key is None:
+                        continue
+                    prev = self._last_counts.get(("plan", key), 0)
+                    if count > prev:
+                        self._note(key, count - prev, now_ms)
+                        self._last_counts[("plan", key)] = count
+
+    # -- budget --------------------------------------------------------------
+    def _live_by_key(self) -> dict:
+        """Current registry rows keyed by signature tuple."""
+        out = {}
+        for row in self.stats_fn() or ():
+            key = (
+                row.get("group"),
+                row.get("measure"),
+                tuple(row.get("key_tags", ())),
+                tuple(row.get("fields", ())),
+            )
+            out[key] = row
+        return out
+
+    def _enforce_budget(self, live: dict) -> None:
+        """Evict least-recently-hit AUTO signatures past either bound.
+        Manual registrations (rows whose key this loop never
+        registered) are never touched.
+
+        Budgets are PER TENANT (docs/robustness.md "Multi-tenant QoS"):
+        each tenant gets the full signature-count and state-MB
+        allowance over its own groups, so one tenant's churn can never
+        evict another tenant's materialized windows.  A single-tenant
+        deployment — every group in the default tenant — degenerates to
+        exactly the old global budget."""
+        from banyandb_tpu_torch.qos.tenancy import tenant_of_group
+
+        by_tenant: dict[str, list] = {}
+        for key, row in live.items():
+            if key in self._auto:
+                by_tenant.setdefault(tenant_of_group(key[0]), []).append(
+                    (key, row)
+                )
+        max_n = autoreg_max_signatures()
+        max_bytes = autoreg_max_state_mb() * (1 << 20)
+
+        def lru_order(kr):
+            row = kr[1]
+            return (row.get("last_hit_ms") or 0, row.get("hits") or 0)
+
+        for auto_rows in by_tenant.values():
+            # only AUTO signatures' window states count against the
+            # autoreg budget: a large MANUAL registration is the
+            # operator's own memory decision and must not starve auto
+            # materialization (only auto signatures are ever evicted)
+            total_states = sum(
+                int(r.get("states", 0)) for _k, r in auto_rows
+            )
+            auto_rows.sort(key=lru_order)
+            while auto_rows and (
+                len(auto_rows) > max_n
+                or total_states * _STATE_BYTES > max_bytes
+            ):
+                key, row = auto_rows.pop(0)
+                try:
+                    if self.unregister_fn(*key):
+                        self.evicted_total += 1
+                        total_states -= int(row.get("states", 0))
+                        with self._lock:
+                            self._auto.discard(key)
+                        self._note_evicted(key)
+                        log.info(
+                            "autoreg: evicted %s/%s%s (budget)",
+                            key[0], key[1], list(key[2]),
+                        )
+                except Exception:  # noqa: BLE001 — must not kill the loop
+                    self.errors += 1
+                    return
+
+    # -- the tick ------------------------------------------------------------
+    def _make_room(
+        self, live: dict, cand_last_ms: int, tenant: str = ""
+    ) -> bool:
+        """Displace the least-recently-HIT auto signature for a new
+        candidate — only when that victim is actually COLDER than the
+        candidate's evidence (a dashboard whose windows serve every
+        refresh keeps a fresh last-hit and is never displaced by a
+        one-off).  Manual registrations are never touched; victims come
+        from the CANDIDATE'S OWN tenant only (per-tenant budget
+        partitions — one tenant's hot pattern never displaces
+        another's)."""
+        from banyandb_tpu_torch.qos.tenancy import tenant_of_group
+
+        rows = sorted(
+            (
+                (k, live[k])
+                for k in live
+                if k in self._auto
+                and (not tenant or tenant_of_group(k[0]) == tenant)
+            ),
+            key=lambda kr: (
+                kr[1].get("last_hit_ms") or 0,
+                kr[1].get("hits") or 0,
+            ),
+        )
+        if not rows:
+            return False
+        victim, vrow = rows[0]
+        if (vrow.get("last_hit_ms") or 0) >= cand_last_ms:
+            return False  # everything live is hotter than the candidate
+        try:
+            if not self.unregister_fn(*victim):
+                return False
+        except Exception:  # noqa: BLE001
+            self.errors += 1
+            return False
+        self.evicted_total += 1
+        live.pop(victim, None)
+        with self._lock:
+            self._auto.discard(victim)
+        self._note_evicted(victim)
+        log.info(
+            "autoreg: evicted %s/%s%s (lru, making room)",
+            victim[0], victim[1], list(victim[2]),
+        )
+        return True
+
+    def tick(self) -> int:
+        """One mine → register → budget round; -> registrations made."""
+        self.mine()
+        live = self._live_by_key()
+        min_hits = autoreg_min_hits()
+        max_n = autoreg_max_signatures()
+        made = 0
+        now_ms = int(time.time() * 1000)
+        with self._lock:
+            candidates = sorted(
+                (
+                    (key, rec)
+                    for key, rec in self._hits.items()
+                    if key not in live
+                    and rec["hits"] >= min_hits
+                    and now_ms >= rec.get("backoff_until_ms", 0)
+                ),
+                key=lambda kr: -kr[1]["hits"],
+            )
+        from banyandb_tpu_torch.qos.tenancy import tenant_of_group
+
+        for key, rec in candidates:
+            # per-tenant count: the cap applies within the candidate's
+            # tenant, not across the whole node
+            tenant = tenant_of_group(key[0])
+            n_auto = sum(
+                1
+                for k in live
+                if k in self._auto and tenant_of_group(k[0]) == tenant
+            )
+            if n_auto >= max_n and not self._make_room(
+                live, rec["last_ms"], tenant
+            ):
+                continue
+            try:
+                info = self.register_fn(*key)
+            except Exception as e:  # noqa: BLE001 — a stale/invalid
+                # signature (dropped measure, renamed tag, index-mode)
+                # must not wedge the loop; forget it so it cannot retry
+                # forever
+                self.errors += 1
+                with self._lock:
+                    self._hits.pop(key, None)
+                log.info("autoreg: %s/%s rejected: %s", key[0], key[1], e)
+                continue
+            made += 1
+            self.registered_total += 1
+            with self._lock:
+                self._auto.add(key)
+            live[key] = info if isinstance(info, dict) else {}
+            log.info(
+                "autoreg: registered %s/%s keys=%s fields=%s "
+                "(hits=%d)",
+                key[0], key[1], list(key[2]), list(key[3]), rec["hits"],
+            )
+        if made:
+            live = self._live_by_key()
+        self._enforce_budget(live)
+        self._export_gauges(live)
+        with self._lock:
+            self._save_locked()
+        return made
+
+    def _export_gauges(self, live: dict) -> None:
+        from banyandb_tpu_torch.obs import metrics as obs_metrics
+
+        meter = obs_metrics.global_meter()
+        n_auto = sum(1 for k in live if k in self._auto)
+        meter.gauge_set(
+            "autoreg_signatures", float(n_auto), {"source": "auto"}
+        )
+        meter.gauge_set(
+            "autoreg_signatures",
+            float(len(live) - n_auto),
+            {"source": "manual"},
+        )
+
+    # -- lifecycle -----------------------------------------------------------
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self.tick()
+            except Exception:  # noqa: BLE001 — the loop must survive
+                self.errors += 1
+                log.exception("autoreg tick failed")
+            self._wake.wait(self.interval_s)
+            self._wake.clear()
+
+    def start(self) -> None:
+        if self._thread is not None and self._thread.is_alive():
+            return
+        self._stop.clear()
+        t = threading.Thread(
+            target=self._loop, name="bydb-autoreg", daemon=True
+        )
+        self._thread = t
+        t.start()
+
+    def poke(self) -> None:
+        """Wake the loop now (tests / smoke scripts)."""
+        self._wake.set()
+
+    def stop(self, timeout: float = 10.0) -> None:
+        self._stop.set()
+        self._wake.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout)
+        self._thread = None
+        with self._lock:
+            self._save_locked()
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "enabled": autoreg_enabled(),
+                "known_signatures": len(self._hits),
+                "auto_registered": len(self._auto),
+                "registered_total": self.registered_total,
+                "evicted_total": self.evicted_total,
+                "errors": self.errors,
+                "max_signatures": autoreg_max_signatures(),
+                "max_state_mb": autoreg_max_state_mb(),
+            }

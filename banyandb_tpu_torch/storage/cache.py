@@ -167,7 +167,8 @@ _device = ServingCache(DEVICE_BUDGET, max_entries=0)
 # LRU, so one tenant's churn cannot evict another's entries.  The
 # default tenant keeps the original process-global instance — untenanted
 # deployments are byte-identical to pre-QoS behavior.  Each partition
-# gets the process default budget and the same entry-cap knob.
+# gets the tenant's configured budget (qos limits `cache_bytes`) or the
+# process default, and the same entry-cap knob.
 _partitions: dict[str, ServingCache] = {}
 _partitions_lock = threading.Lock()
 
@@ -178,10 +179,12 @@ def _tenant_partition(tenant: str) -> ServingCache:
         with _partitions_lock:
             part = _partitions.get(tenant)
             if part is None:
-                # the per-tenant `cache_bytes` limit lives in the QoS
-                # plane, which this package does not carry yet: every
-                # partition gets the process default budget
-                part = _partitions[tenant] = ServingCache(DEFAULT_BUDGET)
+                from banyandb_tpu_torch.qos.plane import global_qos
+
+                budget = (
+                    global_qos().limits(tenant).cache_bytes or DEFAULT_BUDGET
+                )
+                part = _partitions[tenant] = ServingCache(budget)
     return part
 
 

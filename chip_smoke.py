@@ -12,15 +12,30 @@ before the last line is printed:
 3. kernels: each kernel against its plain PyTorch version at the main
    path's shapes and at the edge cases, with its time, the plain
    version's, one PyTorch library call's and the memory-bound floor;
-4. main path: 4,194,304 points (1,024 services x 8 regions) written
+4. executor path: 4,194,304 points (1,024 services x 8 regions) written
    through the memtable and ``PartWriter`` into four parts, read back,
    and queried with ``execute_aggregate`` — count/sum/avg/min/max TopN
    and p50/p99 — fused, then staged (``BYDB_FUSED=0``, must be
    byte-identical), then on the CPU (must agree within the stated
-   tolerances), and held against a numpy oracle; the kernels' launch
-   counts over the card runs must be above zero;
-5. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
+   tolerances), and held against a numpy oracle;
+5. decode path: the timestamp column of one 1,048,576-row part,
+   encoded by ``utils/encoding`` (fixed-width deltas), rebased to the
+   part's smallest timestamp and decoded on the card by
+   ``ops.delta_decode`` (the prefix-sum kernel), against the host
+   decode;
+6. engine path: the same configuration written through
+   ``MeasureEngine.write_columns`` (group ``sw``, ``shard_num=2``, four
+   batches, a flush after each) and queried from BydbQL text through
+   ``MeasureEngine.query`` on the card, against a ``device="cpu"``
+   engine over the same parts and the numpy oracle;
+7. determinism: the ``scatter`` (G = 16,384) and ``sort``
+   (G = 100,000) group reduce of non-integer values, twice on the card
+   (same bytes) and against the CPU;
+8. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
+
+Every launch count is set to 0 just before a path (4, 5, 6) is driven
+and read just after it; each kernel of a path must have launched there.
 
 The query's data: the BASELINE.json configuration "service_resp_time
 avg+percentile, 1k series, groupBy service_id" — ``latency`` drawn from
@@ -50,6 +65,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 RTOL = 1e-5  # f32 sums of non-integer fields (tests/test_precision.py)
 KERNEL_N = 1 << 20  # one scan chunk (measure_exec.SCAN_CHUNK)
 KERNEL_G = N_SVC
+
+
+# the kernels each path must launch (fused_group_sum is on none: tests only)
+PATH_KERNELS = {
+    "executor": ("fused_group_multi", "widen_narrow"),
+    "decode": ("prefix_sum_narrow",),
+    "engine": ("fused_group_multi",),
+}
 
 
 class Failed(Exception):
@@ -237,17 +260,28 @@ def kernel_phase(hk) -> dict:
 
     # fused_group_sum: the single-field wrapper, off the main path
     v1 = vals[0].contiguous()
-    srow = timed_row(
-        lambda: hk.fused_group_sum(codes, pred, v1, valid, num_groups=g),
-        lambda: hk.fused_group_multi_plain(codes, pred, v1[None], valid, g),
-        lambda: acc[:2].zero_().index_add_(1, slot, rows_in[:2]),
-        50,
+    ksc, kss = hk.fused_group_sum(codes, pred, v1, valid, num_groups=g)
+    psc, pss = hk.fused_group_multi_plain(codes, pred, v1[None], valid, g)
+    check(torch.equal(ksc, psc), "fused_group_sum: counts differ")
+    check(
+        torch.allclose(kss, pss[0], rtol=RTOL, atol=0.0),
+        f"fused_group_sum: sums beyond rtol={RTOL}",
     )
-    log(
-        f"  fused_group_sum [N={n} F=1 G={g}] device ms per call: kernel "
-        f"{srow['ms']!r}, plain {srow['plain_ms']!r}, library "
-        f"{srow['library_ms']!r}, bound "
-        f"{(n * 10 + 2 * g * 4) / HBM_BYTES_PER_S * 1e3!r}"
+    rows["fused_group_sum"] = dict(
+        name="fused_group_sum",
+        route="cuda",
+        source="banyandb_tpu_torch/csrc/fused_group.cu",
+        replaces="banyandb_tpu/ops/pallas_kernels.py:260",
+        max_abs_err=float((kss - pss[0]).abs().max()),
+        bound_ms=(n * 10 + 2 * g * 4) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        shape=f"N={n} F=1 G={g}",
+        **timed_row(
+            lambda: hk.fused_group_sum(codes, pred, v1, valid, num_groups=g),
+            lambda: hk.fused_group_multi_plain(codes, pred, v1[None], valid, g),
+            lambda: acc[:2].zero_().index_add_(1, slot, rows_in[:2]),
+            50,
+        ),
     )
 
     rng = np.random.default_rng(10)
@@ -285,6 +319,7 @@ def kernel_phase(hk) -> dict:
             200,
         ),
     )
+    rows["prefix_sum_narrow"] = prefix_sum_rows(hk)
     for r in rows.values():
         log(
             f"  {r['name']} [{r['shape']}] device ms per call: kernel "
@@ -296,7 +331,61 @@ def kernel_phase(hk) -> dict:
     return rows
 
 
-# -- phase 4: the main path ----------------------------------------------------
+def prefix_sum_rows(hk) -> dict:
+    """prefix_sum_narrow against its plain version at the edge cases of
+    the CPU tests and at the decode path's shape; -> its kernel row."""
+    import torch
+
+    rng = np.random.default_rng(11)
+    t = hk.TILE
+    cases = {
+        "one tile": rng.integers(-1000, 1000, t),
+        "int16 range": rng.integers(-32768, 32768, 2 * t),
+        "full int32 range": rng.integers(-(2**31), 2**31, 3 * t, dtype=np.int64),
+        "wraps past 2^31": np.full(4 * t, 2**20),
+        "wraps below -2^31": np.full(t, -(2**22)),
+        "main path": rng.integers(-4096, 4096, KERNEL_N),
+    }
+    for what, x in cases.items():
+        x = torch.from_numpy(x.astype(np.int32)).cuda()
+        out = hk.prefix_sum_narrow(x)
+        plain = hk.prefix_sum_narrow_plain(x)
+        torch.cuda.synchronize()
+        want = np.cumsum(x.cpu().numpy(), dtype=np.int32)
+        check(out.dtype == torch.int32, "prefix_sum_narrow: dtype")
+        check(
+            torch.equal(out, plain) and np.array_equal(out.cpu().numpy(), want),
+            f"prefix_sum_narrow {what} N={x.shape[0]}: differs from plain",
+        )
+        log(f"  ok  prefix_sum_narrow {what} N={x.shape[0]} exact")
+    for bad in (torch.zeros(2049, dtype=torch.int32, device="cuda"),
+                torch.zeros(2048, dtype=torch.int16, device="cuda")):
+        try:
+            hk.prefix_sum_narrow(bad)
+            raise Failed(f"prefix_sum_narrow accepted {bad.dtype} N={bad.shape[0]}")
+        except (ValueError, TypeError):
+            log(f"  ok  prefix_sum_narrow rejects {bad.dtype} N={bad.shape[0]}")
+    # timed at the main path's case (the loop leaves it in x, out and
+    # plain): one 1,048,576-row part's deltas with `first` in front
+    return dict(
+        name="prefix_sum_narrow",
+        route="cuda",
+        source="banyandb_tpu_torch/csrc/prefix_sum.cu",
+        replaces="banyandb_tpu/ops/pallas_kernels.py:233",
+        max_abs_err=float((out.long() - plain.long()).abs().max()),
+        bound_ms=KERNEL_N * (4 + 4) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes",
+        shape=f"N={KERNEL_N} int32",
+        **timed_row(
+            lambda: hk.prefix_sum_narrow(x),
+            lambda: hk.prefix_sum_narrow_plain(x),
+            lambda: torch.cumsum(x, 0, dtype=torch.int32),
+            200,
+        ),
+    )
+
+
+# -- phase 4: the executor path ------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
@@ -569,9 +658,10 @@ def oracle_check(pts: dict, p, res, what: str) -> None:
     log(f"  ok  {what}: agrees with the numpy oracle")
 
 
-def main_path(hk, n_points: int, device: str, root: str) -> dict:
-    """Write, read and query; -> kernel launch counts over the runs on
-    `device` (the CPU comparison runs come after they are read)."""
+def main_path(hk, n_points: int, device: str, root: str) -> tuple:
+    """Write, read and query; -> (kernel launch counts over the runs on
+    `device`, the parts).  The CPU comparison runs come after the counts
+    are read."""
     pts = make_points(n_points, SEED)
     m = measure_schema()
     t0 = time.perf_counter()
@@ -626,7 +716,235 @@ def main_path(hk, n_points: int, device: str, root: str) -> dict:
             check(res.groups == cres.groups, f"{name}: TopN groups differ")
         log(f"  ok  {name}: card agrees with the CPU run ({cms:.1f} ms on CPU)")
         oracle_check(pts, p, res, name)
+    return launches, parts
+
+
+# -- phase 5: the decode path --------------------------------------------------
+
+
+def decode_path(hk, part, device: str) -> dict:
+    """One part's timestamp column through ``utils/encoding`` and
+    ``ops.delta_decode`` on `device`; -> the launch counts of the path."""
+    import torch
+
+    from banyandb_tpu_torch import ops
+    from banyandb_tpu_torch.utils import compress as zst
+    from banyandb_tpu_torch.utils import encoding as enc
+
+    ts = part.read(range(len(part.blocks)), tags=[], fields=[]).ts
+    n = ts.shape[0]
+    blob = enc.encode_int64(ts)
+    check(blob[0] == 1, f"decode: the timestamp column took mode {blob[0]}, not delta")
+    width = blob[1]
+    first = int.from_bytes(blob[2:10], "little", signed=True)
+    dt = {1: np.int8, 2: np.int16, 4: np.int32, 8: np.int64}[width]
+    deltas = np.frombuffer(zst.decompress(blob[10:]), dtype=dt)
+    check(deltas.shape[0] == n - 1, "decode: delta count")
+    check(width <= 4, f"decode: {width}-byte deltas do not fit the i32 width")
+    epoch = int(ts.min())
+    want = (enc.decode_int64(blob, n) - epoch).astype(np.int32)
+    check(np.array_equal(want.astype(np.int64) + epoch, ts), "decode: host round trip")
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    got = ops.delta_decode(first - epoch, torch.from_numpy(deltas.copy()).to(device))
+    got = got.cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(hk.LAUNCHES)
+    check(got.dtype == np.int32 and np.array_equal(got, want),
+          "decode: card decode differs from the host decode")
+    log(
+        f"  ok  {n} timestamps ({width}-byte deltas) decoded on {device} equal "
+        f"the host decode minus epoch {epoch} ({ms:.3f} ms with copies); "
+        f"launches {launches}"
+    )
     return launches
+
+
+# -- phase 6: the engine path --------------------------------------------------
+
+ENGINE_GROUP = "sw"
+
+
+def engine_registry(root: str):
+    from banyandb_tpu_torch.api import (
+        Catalog, Entity, FieldSpec, FieldType, Group, Measure, ResourceOpts,
+        SchemaRegistry, TagSpec, TagType,
+    )
+
+    reg = SchemaRegistry(os.path.join(root, "schema"))
+    reg.create_group(Group(ENGINE_GROUP, Catalog.MEASURE, ResourceOpts(shard_num=2)))
+    reg.create_measure(
+        Measure(
+            group=ENGINE_GROUP,
+            name="service_resp_time",
+            tags=(TagSpec("svc", TagType.STRING), TagSpec("region", TagType.STRING)),
+            fields=(
+                FieldSpec("latency", FieldType.FLOAT),
+                FieldSpec("calls", FieldType.INT),
+            ),
+            entity=Entity(("svc", "region")),
+        )
+    )
+    return reg
+
+
+def engine_queries(n: int) -> dict:
+    """BydbQL text of the executor path's two queries."""
+    span = f"TIME BETWEEN {T0} AND {T0 + n - 1}"
+    frm = f"FROM MEASURE service_resp_time IN {ENGINE_GROUP} {span}"
+    where = "WHERE region != 'r3' GROUP BY svc"
+    return {
+        "topn": f"SELECT latency, calls {frm} {where} TOP 10 BY latency",
+        "percentile": (
+            f"SELECT percentile(latency, 0.5, 0.99) {frm} {where} LIMIT {N_SVC}"
+        ),
+    }
+
+
+def engine_breakdown(tree: dict) -> str:
+    """Stage times of one engine query from its span tree."""
+    out = []
+    for name in ("analyze", "planner", "part_gather", "execute", "gather", "reduce",
+                 "merge"):
+        sp = find_span(tree, name)
+        if sp is not None:
+            out.append(f"{name} {sp['duration_ms']!r}")
+    red = find_span(tree, "reduce")
+    cache = red["tags"].get("partials_cache") if red is not None else None
+    return ", ".join(out) + f" ms (partials cache {cache})"
+
+
+def same_values(a, b, exact: set, what: str) -> None:
+    """Engine results: groups and their order equal; values equal except
+    the sums and means of non-integer fields, within RTOL."""
+    check(a.groups == b.groups, f"{what}: groups differ")
+    check(a.rep_tags == b.rep_tags, f"{what}: representative tags differ")
+    check(sorted(a.values) == sorted(b.values), f"{what}: value keys differ")
+    for k, va in a.values.items():
+        vb = b.values[k]
+        if k.startswith(("sum", "mean")) and not any(f in k for f in exact):
+            ok = np.allclose(np.asarray(va, float), np.asarray(vb, float),
+                             rtol=RTOL, atol=0.0)
+        else:
+            ok = va == vb
+        check(ok, f"{what}: {k} differs")
+
+
+def engine_path(hk, n_points: int, device: str, root: str) -> dict:
+    """Write through MeasureEngine.write_columns, query from BydbQL on
+    `device`; -> the launch counts of the path (the CPU engine's runs
+    come after they are read)."""
+    from banyandb_tpu_torch import bydbql
+    from banyandb_tpu_torch.models.measure import DictColumn as EngineDict
+    from banyandb_tpu_torch.models.measure import MeasureEngine
+    from banyandb_tpu_torch.obs.tracer import Tracer
+
+    pts = make_points(n_points, SEED + 1)
+    reg = engine_registry(root)
+    eng = MeasureEngine(reg, os.path.join(root, "data"), device=device)
+    svc_vals = ["svc-%04d" % i for i in range(N_SVC)]
+    region_vals = ["r%d" % i for i in range(N_REGION)]
+    bounds = np.linspace(0, n_points, 5).astype(np.int64)
+    t0 = time.perf_counter()
+    for k in range(4):
+        lo, hi = int(bounds[k]), int(bounds[k + 1])
+        eng.write_columns(
+            ENGINE_GROUP, "service_resp_time",
+            ts_millis=pts["ts"][lo:hi],
+            tags={"svc": EngineDict(svc_vals, pts["svc"][lo:hi]),
+                  "region": EngineDict(region_vals, pts["region"][lo:hi])},
+            fields={"latency": pts["latency"][lo:hi], "calls": pts["calls"][lo:hi]},
+            versions=np.ones(hi - lo, dtype=np.int64),
+        )
+        eng.flush()
+    log(f"  wrote {n_points} points in 4 batches of write_columns + flush in "
+        f"{time.perf_counter() - t0:.3f} s")
+    texts = engine_queries(n_points)
+    reqs = {name: bydbql.parse(ql) for name, ql in texts.items()}
+    card = {}
+    hk.reset_launches()
+    for name, req in reqs.items():
+        runs = []
+        for _ in range(3):
+            tr = Tracer("engine")
+            t1 = time.perf_counter()
+            res = eng.query(req, tracer=tr)
+            runs.append((res, (time.perf_counter() - t1) * 1e3, tr.finish()))
+        for res, _ms, _t in runs[1:]:
+            same_values(res, runs[0][0], {"calls"}, f"engine {name}: repeat run")
+        log(f"  engine {name}: {texts[name]}")
+        log(f"  engine {name} wall ms {[round(r[1], 3) for r in runs]}")
+        log(f"  engine {name} breakdown (first, last): {engine_breakdown(runs[0][2])}; "
+            f"{engine_breakdown(runs[-1][2])}")
+        card[name] = runs[0][0]
+    # the partials of each query, for the numpy oracle
+    parts = {name: eng.query_partials(req) for name, req in reqs.items()}
+    launches = dict(hk.LAUNCHES)
+    log(f"  kernel launches over the engine's card runs: {launches}")
+    eng.close()
+
+    cpu = MeasureEngine(reg, os.path.join(root, "data"), device="cpu")
+    try:
+        for name, req in reqs.items():
+            t1 = time.perf_counter()
+            cres = cpu.query(req)
+            cms = (time.perf_counter() - t1) * 1e3
+            same_values(card[name], cres, {"calls"}, f"engine {name} card vs cpu")
+            log(f"  ok  engine {name}: card agrees with a device='cpu' engine "
+                f"({cms:.1f} ms on CPU)")
+            oracle_check(pts, parts[name], card[name], f"engine {name}")
+    finally:
+        cpu.close()
+    top = card["topn"]
+    keep = pts["region"] != 3
+    mean = (np.bincount(pts["svc"][keep], weights=pts["latency"][keep], minlength=N_SVC)
+            / np.bincount(pts["svc"][keep], minlength=N_SVC))
+    want = ["svc-%04d" % i for i in np.argsort(-mean, kind="stable")[:10]]
+    check([g[0] for g in top.groups] == want, "engine topn: TOP 10 differs from numpy")
+    log("  ok  engine topn: TOP 10 by mean latency agrees with numpy")
+    return launches
+
+
+# -- phase 7: determinism of scatter and sort ----------------------------------
+
+
+def determinism_phase() -> None:
+    import torch
+
+    from banyandb_tpu_torch import ops
+
+    rng = np.random.default_rng(17)
+    n = KERNEL_N
+    for method, g in (("scatter", 16384), ("sort", 100000)):
+        key = rng.integers(0, g, n).astype(np.int32)
+        valid = rng.random(n) < 0.9
+        vals = rng.gamma(2.0, 40.0, n).astype(np.float32)
+        args = (torch.from_numpy(key), torch.from_numpy(valid))
+        dev_args = [a.cuda() for a in args]
+        v = torch.from_numpy(vals)
+        runs = [
+            ops.group_reduce(*dev_args, {"v": v.cuda()}, g, method=method)
+            for _ in range(2)
+        ]
+        torch.cuda.synchronize()
+        b = [(r.count.cpu().numpy(), r.sums["v"].cpu().numpy()) for r in runs]
+        check(
+            b[0][0].tobytes() == b[1][0].tobytes()
+            and b[0][1].tobytes() == b[1][1].tobytes(),
+            f"{method} G={g}: two card runs differ",
+        )
+        cpu = ops.group_reduce(*args, {"v": v}, g, method=method)
+        cs = cpu.sums["v"].numpy()
+        check(np.array_equal(cpu.count.numpy(), b[0][0]), f"{method} G={g}: counts vs cpu")
+        check(np.allclose(b[0][1], cs, rtol=RTOL, atol=0.0),
+              f"{method} G={g}: sums beyond rtol={RTOL} of the cpu")
+        diff = np.abs(b[0][1].astype(np.float64) - cs)
+        log(
+            f"  ok  {method} N={n} G={g}: two card runs byte-identical; card vs "
+            f"cpu sums: max abs diff {float(diff.max())!r}, "
+            f"{int((diff > 0).sum())} of {g} groups differ, "
+            f"bit-identical {bool(np.array_equal(b[0][1], cs))}"
+        )
 
 
 def main() -> int:
@@ -657,12 +975,25 @@ def main() -> int:
             log(f"    {line.strip()}")
     log("[3] kernels against their plain versions")
     rows = kernel_phase(hk)
-    log(f"[4] main path: {N_POINTS} points")
+    paths = {}
     with tempfile.TemporaryDirectory(prefix="bydb-smoke-") as root:
-        launches = main_path(hk, N_POINTS, "cuda", root)
+        log(f"[4] executor path: {N_POINTS} points")
+        paths["executor"], parts = main_path(
+            hk, N_POINTS, "cuda", os.path.join(root, "parts")
+        )
+        log("[5] decode path")
+        paths["decode"] = decode_path(hk, parts[0], "cuda")
+    with tempfile.TemporaryDirectory(prefix="bydb-smoke-engine-") as root:
+        log(f"[6] engine path: {N_POINTS} points through MeasureEngine and BydbQL")
+        paths["engine"] = engine_path(hk, N_POINTS, "cuda", root)
+    log("[7] determinism of the scatter and sort group reduce")
+    determinism_phase()
+    for path, kernels in PATH_KERNELS.items():
+        for k in kernels:
+            check(paths[path][k] > 0, f"{k}: not launched on the {path} path")
     for k, r in rows.items():
-        r["launches"] = launches[k]
-        check(r["launches"] > 0, f"{k}: not launched on the main path")
+        r["launches_by_path"] = {p: c[k] for p, c in paths.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
         del r["device_kernels"]  # logged in phase 3
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

@@ -9,7 +9,9 @@ on a machine that has only the port's dependencies:
 
 Tolerances as in chip_smoke.py: counts exact, sums exact on
 integer-valued data and within rtol=1e-5 otherwise (the kernel and the
-plain version sum a tile in different orders); widen exact.
+plain version sum a tile in different orders); widen and prefix sum
+exact; the ``scatter`` and ``sort`` group reduce give the same bytes on
+every run.
 """
 
 import numpy as np
@@ -116,3 +118,78 @@ def test_query_fused_and_staged_identical_on_card(dev, monkeypatch):
     cpu = me.compute_partials(m, req, [src], device="cpu")
     assert np.array_equal(cpu.count, out["1"].count)
     assert np.array_equal(cpu.hist, out["1"].hist)
+
+
+@pytest.mark.parametrize(
+    "case", ["one-tile", "small", "wraps-past-2^31", "wide", "main-path"]
+)
+def test_prefix_sum_narrow_matches_plain(dev, case):
+    rng = np.random.default_rng(11)
+    n = {"one-tile": hk.TILE, "small": 2 * hk.TILE, "wraps-past-2^31": 4 * hk.TILE,
+         "wide": 3 * hk.TILE, "main-path": 1 << 20}[case]
+    if case == "wraps-past-2^31":
+        x = np.full(n, 2**20, dtype=np.int32)
+    elif case == "wide":
+        x = rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
+    else:
+        x = rng.integers(-1000, 1000, n).astype(np.int32)
+    xt = torch.from_numpy(x).to(dev)
+    before = hk.LAUNCHES["prefix_sum_narrow"]
+    out = hk.prefix_sum_narrow(xt)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["prefix_sum_narrow"] == before + 1
+    assert torch.equal(out, hk.prefix_sum_narrow_plain(xt))
+    assert np.array_equal(out.cpu().numpy(), np.cumsum(x, dtype=np.int32))
+
+
+def test_delta_decode_launches_the_kernel(dev):
+    from banyandb_tpu_torch import ops
+
+    rng = np.random.default_rng(12)
+    deltas = rng.integers(0, 50, 2 * hk.TILE - 1).astype(np.int32)
+    before = hk.LAUNCHES["prefix_sum_narrow"]
+    out = ops.delta_decode(5, torch.from_numpy(deltas).to(dev))
+    assert hk.LAUNCHES["prefix_sum_narrow"] == before + 1
+    want = np.concatenate([[5], 5 + np.cumsum(deltas)]).astype(np.int32)
+    assert np.array_equal(out.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("method,g", [("scatter", 16384), ("sort", 100000)])
+def test_scatter_and_sort_same_bytes_every_run(dev, method, g):
+    from banyandb_tpu_torch import ops
+
+    rng = np.random.default_rng(g)
+    n = 1 << 18
+    key = torch.from_numpy(rng.integers(0, g, n).astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    vals = torch.from_numpy(rng.gamma(2.0, 40.0, n).astype(np.float32)).to(dev)
+    runs = [
+        ops.group_reduce(key, valid, {"v": vals}, g, method=method)
+        for _ in range(2)
+    ]
+    for a, b in ((r.count, r.sums["v"]) for r in runs[1:]):
+        assert torch.equal(a, runs[0].count)
+        assert runs[0].sums["v"].cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+    cpu = ops.group_reduce(key.cpu(), valid.cpu(), {"v": vals.cpu()}, g, method=method)
+    assert torch.equal(cpu.count, runs[0].count.cpu())
+    torch.testing.assert_close(cpu.sums["v"], runs[0].sums["v"].cpu(), rtol=RTOL, atol=0)
+
+
+def test_kernel_keeps_non_finite_values_in_their_group(dev):
+    n, g = 1 << 16, 16
+    rng = np.random.default_rng(13)
+    codes = rng.integers(0, g, n).astype(np.int32)
+    valid = rng.random(n) < 0.85
+    vals = rng.integers(-50, 100, (1, n)).astype(np.float32)
+    for i, (grp, ok, v) in enumerate(
+        [(1, True, np.nan), (2, True, np.inf), (3, True, -np.inf),
+         (5, False, np.nan), (6, False, np.inf)]
+    ):
+        codes[97 * i], valid[97 * i], vals[0, 97 * i] = grp, ok, v
+    args = [torch.from_numpy(a).to(dev) for a in (codes, np.ones(n, bool), vals, valid)]
+    kc, ks = hk.fused_group_multi(*args, num_groups=g)
+    pc, ps = hk.fused_group_multi_plain(*args, g)
+    assert torch.equal(kc, pc)
+    ks, ps = ks.cpu().numpy()[0], ps.cpu().numpy()[0]
+    assert np.array_equal(ks, ps, equal_nan=True)
+    assert np.array_equal(np.isfinite(ks), ~np.isin(np.arange(g), [1, 2, 3]))

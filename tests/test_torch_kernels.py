@@ -130,4 +130,9 @@ def test_plain_fallback_only_for_cpu_tensors():
         torch.from_numpy(a) for a in _inputs(2048, 1, 8, True, seed=2)
     )
     hk.fused_group_multi(codes, pred, vals, valid, num_groups=8)
-    assert hk.LAUNCHES == {"fused_group_multi": 0, "widen_narrow": 0}
+    hk.fused_group_sum(codes, pred, vals[0], valid, num_groups=8)
+    hk.prefix_sum_narrow(torch.zeros(2048, dtype=torch.int32))
+    assert hk.LAUNCHES == {
+        "fused_group_multi": 0, "fused_group_sum": 0, "widen_narrow": 0,
+        "prefix_sum_narrow": 0,
+    }

@@ -207,3 +207,56 @@ def test_filter_masks_match():
         tops.mask_or(tops.mask_and(a, b), tops.mask_not(a)).numpy(),
         np.asarray(jops.mask_or(jops.mask_and(jnp.asarray(a.numpy()), jnp.asarray(b.numpy())), ~jnp.asarray(a.numpy()))),
     )
+
+
+def _nonfinite_inputs(n, g, seed):
+    """Integer-valued f32 values (finite sums are exact in any order)
+    with NaN, +inf and -inf planted in valid rows of groups 1..4 and in
+    masked-out rows of groups 5..7."""
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, g, n).astype(np.int32)
+    valid = rng.random(n) < 0.85
+    vals = rng.integers(-50, 100, n).astype(np.float32)
+    plant = [
+        (1, True, np.nan), (2, True, np.inf), (3, True, -np.inf),
+        (4, True, np.inf), (4, True, -np.inf),
+        (5, False, np.nan), (6, False, np.inf), (7, False, -np.inf),
+    ]
+    for i, (grp, ok, v) in enumerate(plant):
+        row = 97 * i + 13
+        key[row], valid[row], vals[row] = grp, ok, v
+    return key, valid, {"v": vals}
+
+
+@pytest.mark.parametrize("ref_method", ["scatter", "sort"])
+@pytest.mark.parametrize("method", ["kernel", "scatter", "sort"])
+@pytest.mark.parametrize("n", [5000, 70000])
+def test_group_reduce_non_finite_values_stay_in_their_group(ref_method, method, n):
+    """A NaN or +-inf in a valid row reaches only its own group; in a
+    masked-out row it counts nowhere (the JAX package's scatter and sort
+    semantics; its matmul and Pallas methods spread it over the tile).
+    Equal bits, NaN positions included, with one documented exception:
+    at most 65,536 rows the reference's scatter adds without Kahan, so a
+    lone +-inf stays inf there, while the port's kernel folds 2048-row
+    tiles with Kahan, whose compensation turns it into NaN."""
+    g = 16
+    key, valid, fields = _nonfinite_inputs(n, g, seed=n)
+    ref = jops.group_reduce(
+        jnp.asarray(key), jnp.asarray(valid),
+        {k: jnp.asarray(v) for k, v in fields.items()}, g, method=ref_method,
+    )
+    got = tops.group_reduce(
+        torch.from_numpy(key), torch.from_numpy(valid),
+        {k: torch.from_numpy(v) for k, v in fields.items()}, g, method=method,
+    )
+    assert np.array_equal(got.count.numpy(), np.asarray(ref.count))
+    t, j = got.sums["v"].numpy(), np.asarray(ref.sums["v"])
+    bad = ~np.isfinite(j)
+    assert bad[[1, 2, 3, 4]].all() and np.isfinite(j[[0] + list(range(5, g))]).all()
+    assert np.array_equal(~np.isfinite(t), bad)
+    if method == "kernel" and n <= 65536:
+        assert np.array_equal(t[~bad], j[~bad]) and np.isnan(t[bad]).all()
+    else:
+        assert np.array_equal(t, j, equal_nan=True)
+    for mine, theirs in ((got.mins, ref.mins), (got.maxs, ref.maxs)):
+        assert np.array_equal(mine["v"].numpy(), np.asarray(theirs["v"]), equal_nan=True)

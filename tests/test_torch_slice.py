@@ -227,6 +227,29 @@ _ISOLATION = textwrap.dedent(
                        field_projection=("v",))
     res = execute_aggregate(m, req, [src], device="cpu")
     assert res.values["count"] == [1366.0, 1365.0, 1365.0], res.values
+
+    import tempfile
+    from pathlib import Path
+    from banyandb_tpu_torch import bydbql
+    from banyandb_tpu_torch.api import Catalog, Group, ResourceOpts, SchemaRegistry
+    from banyandb_tpu_torch.models.measure import MeasureEngine
+    import banyandb_tpu_torch.admin.protector, banyandb_tpu_torch.index
+    import banyandb_tpu_torch.qos.plane, banyandb_tpu_torch.storage.loops
+    import banyandb_tpu_torch.storage.merge, banyandb_tpu_torch.ops.hopper_kernels
+
+    with tempfile.TemporaryDirectory() as root:
+        reg = SchemaRegistry(Path(root))
+        reg.create_group(Group("g", Catalog.MEASURE, ResourceOpts(shard_num=2)))
+        reg.create_measure(m)
+        eng = MeasureEngine(reg, Path(root) / "data", device="cpu")
+        eng.write_columns("g", "m", ts_millis=np.arange(n, dtype=np.int64),
+                          tags={"svc": [("a", "b", "c")[i % 3] for i in range(n)]},
+                          fields={"v": np.ones(n)})
+        eng.flush()
+        res = eng.query(bydbql.parse(
+            "SELECT count(v) FROM MEASURE m IN g TIME BETWEEN 0 AND 4095 GROUP BY svc"))
+        assert sorted(res.values["count"]) == [1365.0, 1365.0, 1366.0], res.values
+        eng.close()
     bad = sorted(k for k in sys.modules
                  if k == "jax" or k.startswith(("jax.", "banyandb_tpu.")))
     assert not bad, bad
