@@ -5,48 +5,79 @@
 // like torch.cumsum / jnp.cumsum in i32: every add is done on uint32_t
 // (signed overflow is undefined in C++) and the bits are stored back.
 //
-// The TPU ran its grid in order and carried the running total from tile
-// to tile in a revisited [1, 1] output block.  CUDA blocks run in no
-// order, so the carry is rebuilt in three launches (reduce, then scan):
-//
-//   1. tile_totals: one block per 2048-row tile sums its tile;
-//   2. scan_totals: one block turns the tile totals, in place, into
-//      their exclusive prefix (the carry into each tile), walking them
-//      1024 at a time with a running carry;
-//   3. scan_tiles: one block per tile scans its tile (8 rows per thread
-//      in registers, warp __shfl_up_sync scans of the thread totals, a
-//      scan of the 8 warp totals in shared memory) and adds its carry.
-//
-// Integer addition mod 2^32 is associative, so the result does not
-// depend on the order the blocks run in: the same bits on every run and
-// on every device.
-//
 // What bounds it on an H100: bytes.  The least traffic is 4 B read and
 // 4 B written per row; at N = 1,048,576 that is 8,388,608 B / 3.35 TB/s
-// = 2.50 us.  This design reads x twice (passes 1 and 3), 12 B per row,
-// and pays three launches; a single-pass decoupled look-back would
-// remove the second read.
+// = 2.50 us.  The TPU ran its grid in order and carried the running
+// total from tile to tile in a revisited [1, 1] output block.  CUDA
+// blocks run in no order, so this is one single-pass scan with
+// decoupled look-back (Merrill and Garland, "Single-pass Parallel
+// Prefix Scan with Decoupled Look-back", NVIDIA, 2016): x is read once
+// and out written once.
+//
+//   - Block t scans tile t: 4,096 rows, 16 a thread as four 16-byte
+//     vectors laid out warp-striped, so every load and store instruction
+//     of a warp moves 512 contiguous bytes (the last tile may be half
+//     full and is masked).  A lane scans each vector in registers, the
+//     warp scans the vector totals with __shfl_up_sync, one warp scans
+//     the 8 warp totals.
+//   - It publishes its tile total in a 64-bit status word {tag, value},
+//     tag = epoch << 2 | flag, flag 1 = "aggregate", 2 = "inclusive
+//     prefix", with one store.
+//   - Warp 0 looks back over the predecessors' words, 32 at a time,
+//     waits until all 32 carry this call's epoch, and adds the
+//     aggregates up to the nearest inclusive prefix (which ends the
+//     walk; tile 0 publishes its inclusive prefix at once).  The block
+//     then publishes its own inclusive prefix and writes its rows.
+//     The word carries its value and nothing else is published with it,
+//     so relaxed gpu-scope loads and stores suffice (acquire/release
+//     took 1.1 us more at N = 2^20 on an H100: chip_ablation.py).
+//
+// Forward progress: a block waits only on lower tile ids, and the
+// hardware dispatches blocks in index order, so every block it waits on
+// is running or done and publishes without waiting on a later one (the
+// assumption CUB's scan makes).  An atomic ticket would not need it, but
+// every block's loads would wait on one contended atomic.
+// Initialisation: the status words are never cleared.  The wrapper keeps
+// one status buffer per (device, stream), zeroed once when it is made,
+// and passes an epoch that it raises by one per call; a word from an
+// earlier call carries another epoch and reads as "not yet published".
+// That saves the launch that would clear the words every call.
+//
+// Determinism: addition mod 2^32 is associative, so the bits depend
+// neither on the order the blocks run in nor on how the look-back groups
+// the aggregates: the same bits on every run, equal to np.cumsum in i32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 2048;               // rows per tile (pallas TILE)
-constexpr int kThreads = 256;             // threads per tile block
-constexpr int kPer = kTile / kThreads;    // rows per thread: 8
+constexpr int kThreads = 256;
+constexpr int kPer = 16;                  // rows per thread
+constexpr int kVecs = kPer / 4;           // 16-byte vectors per thread
+constexpr int kTile = kThreads * kPer;    // 4,096 rows per block
 constexpr int kWarps = kThreads / 32;
-constexpr int kScanThreads = 1024;        // pass-2 block
 constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kAggregate = 1, kInclusive = 2;
 
-__device__ __forceinline__ void load_rows(const int32_t* __restrict__ x,
-                                          long long tile, uint32_t (&v)[kPer]) {
-  const uint4* p = reinterpret_cast<const uint4*>(
-      x + tile * kTile + (long long)threadIdx.x * kPer);
-  const uint4 a = p[0];
-  const uint4 b = p[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+// The status word carries its value: no other data is published with
+// it, so relaxed gpu-scope accesses (served by L2, never a stale L1
+// line) suffice and save the fences of release/acquire.
+__device__ __forceinline__ uint64_t ld_relaxed(const unsigned long long* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ uint64_t pack(uint32_t epoch, uint32_t flag,
+                                         uint32_t value) {
+  return (uint64_t)((epoch << 2) | flag) << 32 | value;
 }
 
 __device__ __forceinline__ uint32_t warp_inclusive(uint32_t v, int lane) {
@@ -58,110 +89,103 @@ __device__ __forceinline__ uint32_t warp_inclusive(uint32_t v, int lane) {
   return v;
 }
 
-__device__ __forceinline__ uint32_t warp_total(uint32_t v) {
+__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
 
-// Pass 1: totals[t] = sum of tile t (mod 2^32).
+// Tile t = blockIdx.x; status[t]: tile t's status word.
 __global__ void __launch_bounds__(kThreads)
-tile_totals(const int32_t* __restrict__ x, uint32_t* __restrict__ totals) {
+scan_lookback(const int32_t* __restrict__ x, int32_t* __restrict__ out,
+              long long n, unsigned long long* __restrict__ status,
+              uint32_t epoch) {
   __shared__ uint32_t warp_sums[kWarps];
-  uint32_t v[kPer];
-  load_rows(x, blockIdx.x, v);
-  uint32_t s = 0;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) s += v[i];
-  s = warp_total(s);
+  __shared__ uint32_t s_prefix;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = s;
-  __syncthreads();
-  if (warp == 0) {
-    uint32_t w = lane < kWarps ? warp_sums[lane] : 0u;
-    w = warp_total(w);
-    if (lane == 0) totals[blockIdx.x] = w;
-  }
-}
+  const long long tile = blockIdx.x;
 
-// Pass 2 (one block): totals[t] <- sum of totals[0..t) (exclusive).
-__global__ void __launch_bounds__(kScanThreads)
-scan_totals(uint32_t* __restrict__ totals, long long tiles) {
-  __shared__ uint32_t warp_sums[kScanThreads / 32];
-  __shared__ uint32_t chunk_total;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint32_t carry = 0;
-  for (long long base = 0; base < tiles; base += kScanThreads) {
-    const long long i = base + threadIdx.x;
-    const uint32_t v = i < tiles ? totals[i] : 0u;
-    const uint32_t inc = warp_inclusive(v, lane);
-    if (lane == 31) warp_sums[warp] = inc;
-    __syncthreads();
-    if (warp == 0) {
-      const uint32_t w = warp_inclusive(warp_sums[lane], lane);
-      warp_sums[lane] = w;  // inclusive scan of the 32 warp totals
-      if (lane == 31) chunk_total = w;
-    }
-    __syncthreads();
-    const uint32_t before = warp > 0 ? warp_sums[warp - 1] : 0u;
-    if (i < tiles) totals[i] = carry + before + inc - v;
-    carry += chunk_total;
-    __syncthreads();  // warp_sums and chunk_total are reused next round
-  }
-}
-
-// Pass 3: out = inclusive scan of each tile + the carry into the tile.
-__global__ void __launch_bounds__(kThreads)
-scan_tiles(const int32_t* __restrict__ x, const uint32_t* __restrict__ carry,
-           int32_t* __restrict__ out) {
-  __shared__ uint32_t warp_sums[kWarps];
-  uint32_t v[kPer];
-  load_rows(x, blockIdx.x, v);
+  // warp-striped 16-byte vectors: vector j of a lane holds rows
+  // base + 4 (32 j + lane) .. + 3, so each load and store instruction of
+  // a warp covers 512 contiguous bytes
+  const long long base = tile * kTile + (long long)warp * kPer * 32;
+  const bool in = base < n;  // n % 2048 == 0: a warp's rows are all in or out
+  uint32_t v[kVecs][4];
 #pragma unroll
-  for (int i = 1; i < kPer; ++i) v[i] += v[i - 1];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uint32_t inc = warp_inclusive(v[kPer - 1], lane);
-  if (lane == 31) warp_sums[warp] = inc;
+  for (int j = 0; j < kVecs; ++j) {
+    uint4 a = make_uint4(0u, 0u, 0u, 0u);
+    if (in) a = reinterpret_cast<const uint4*>(x + base)[j * 32 + lane];
+    v[j][0] = a.x;
+    v[j][1] = a.x + a.y;
+    v[j][2] = v[j][1] + a.z;
+    v[j][3] = v[j][2] + a.w;
+  }
+  // scan the vector totals across the warp, vector by vector
+  uint32_t before[kVecs], warp_total = 0u;
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    const uint32_t inc = warp_inclusive(v[j][3], lane);
+    before[j] = warp_total + inc - v[j][3];
+    warp_total += __shfl_sync(kFull, inc, 31);
+  }
+  if (lane == 0) warp_sums[warp] = warp_total;
   __syncthreads();
   if (warp == 0) {
     uint32_t w = lane < kWarps ? warp_sums[lane] : 0u;
     w = warp_inclusive(w, lane);
-    if (lane < kWarps) warp_sums[lane] = w;
+    const uint32_t agg = __shfl_sync(kFull, w, kWarps - 1);
+    if (lane < kWarps) warp_sums[lane] = w;  // inclusive scan of warp totals
+    uint32_t excl = 0u;
+    if (tile == 0) {
+      if (lane == 0) st_relaxed(&status[0], pack(epoch, kInclusive, agg));
+    } else {
+      if (lane == 0) st_relaxed(&status[tile], pack(epoch, kAggregate, agg));
+      for (long long end = tile - 1;; end -= 32) {
+        const long long i = end - lane;  // lane 0 is the nearest tile
+        uint64_t s = i >= 0 ? ld_relaxed(&status[i]) : pack(epoch, kInclusive, 0u);
+        while (!__all_sync(kFull, (uint32_t)(s >> 34) == epoch))
+          if ((uint32_t)(s >> 34) != epoch) s = ld_relaxed(&status[i]);
+        const unsigned incl =
+            __ballot_sync(kFull, ((uint32_t)(s >> 32) & 3u) == kInclusive);
+        const int stop = incl ? __ffs(incl) - 1 : 31;
+        excl += warp_sum(lane <= stop ? (uint32_t)s : 0u);
+        if (incl) break;
+      }
+      if (lane == 0) st_relaxed(&status[tile], pack(epoch, kInclusive, excl + agg));
+    }
+    if (lane == 0) s_prefix = excl;
   }
   __syncthreads();
-  const uint32_t add = carry[blockIdx.x] + (warp > 0 ? warp_sums[warp - 1] : 0u)
-                       + inc - v[kPer - 1];
-  uint4 a, b;
-  a.x = v[0] + add; a.y = v[1] + add; a.z = v[2] + add; a.w = v[3] + add;
-  b.x = v[4] + add; b.y = v[5] + add; b.z = v[6] + add; b.w = v[7] + add;
-  uint4* o = reinterpret_cast<uint4*>(
-      out + (long long)blockIdx.x * kTile + (long long)threadIdx.x * kPer);
-  o[0] = a;
-  o[1] = b;
+  if (!in) return;
+  const uint32_t add = s_prefix + (warp > 0 ? warp_sums[warp - 1] : 0u);
+  uint4* o = reinterpret_cast<uint4*>(out + base);
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    const uint32_t d = add + before[j];
+    o[j * 32 + lane] = make_uint4(v[j][0] + d, v[j][1] + d, v[j][2] + d, v[j][3] + d);
+  }
 }
 
 }  // namespace
 
-// x, out: int32 [n], n a multiple of 2048, 16-byte aligned; scratch:
-// uint32 [n / 2048].  Launches on `stream`, does not synchronize; ->
-// cudaGetLastError() after the last launch (0 = success).
-extern "C" int bydb_prefix_sum_narrow(const void* x, long long n,
-                                      void* scratch, void* out, int device,
+// x, out: int32 [n], n a multiple of 2048, 16-byte aligned; state:
+// uint64 [ceil(n / 4096)], zeroed when it was made and used by no
+// other call in flight; epoch: 1 <= epoch < 2^30, never the epoch of an
+// earlier call on this state since it was zeroed.  One launch on
+// `stream`, no synchronize; -> cudaGetLastError() (0 = success).
+extern "C" int bydb_prefix_sum_narrow(const void* x, long long n, void* state,
+                                      unsigned epoch, void* out, int device,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n % kTile != 0) return (int)cudaErrorInvalidValue;
-  const long long tiles = n / kTile;
+  if (n % 2048 != 0 || epoch == 0 || epoch >= (1u << 30))
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (n + kTile - 1) / kTile;
   if (tiles == 0) return 0;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int32_t* xi = static_cast<const int32_t*>(x);
-  uint32_t* totals = static_cast<uint32_t*>(scratch);
-  tile_totals<<<(unsigned)tiles, kThreads, 0, st>>>(xi, totals);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  scan_totals<<<1, kScanThreads, 0, st>>>(totals, tiles);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  scan_tiles<<<(unsigned)tiles, kThreads, 0, st>>>(
-      xi, totals, static_cast<int32_t*>(out));
+  scan_lookback<<<(unsigned)tiles, kThreads, 0, st>>>(
+      static_cast<const int32_t*>(x), static_cast<int32_t*>(out), n,
+      static_cast<unsigned long long*>(state), epoch);
   return (int)cudaGetLastError();
 }

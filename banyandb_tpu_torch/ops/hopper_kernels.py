@@ -18,12 +18,16 @@ into one shared library with a plain C interface under ``_build/``
 (one ``nvcc -c`` per source, all started together, then one link), and
 bound with ``ctypes``.  Each C entry returns ``cudaGetLastError()``.
 
-``fused_group_multi`` replaces pallas_kernels.py::fused_group_multi,
-``widen_narrow`` replaces pallas_kernels.py::widen_narrow and
-``prefix_sum_narrow`` replaces pallas_kernels.py::prefix_sum_narrow;
-what bounds each on the card and how the design answers it is in the
-note at the top of its source (csrc/fused_group.cu, csrc/widen.cu,
-csrc/prefix_sum.cu).
+``fused_group_multi`` replaces pallas_kernels.py::fused_group_multi:
+one pass over the rows (fixed row blocks of 2048-row tiles, each
+Kahan-folding its tile partials in tile order) and a float-float fold
+of the blocks' pairs; ``_partition`` is the block partition and the
+tests model the fold order from it.  ``widen_narrow`` replaces
+pallas_kernels.py::widen_narrow and ``prefix_sum_narrow`` (one
+single-pass decoupled look-back scan) replaces
+pallas_kernels.py::prefix_sum_narrow.  What bounds each on the card and
+how the design answers it is in the note at the top of its source
+(csrc/fused_group.cu, csrc/widen.cu, csrc/prefix_sum.cu).
 """
 
 from __future__ import annotations
@@ -41,11 +45,17 @@ from pathlib import Path
 import torch
 
 TILE = 2048
-# pass-1 warps per block (csrc/fused_group.cu kWarps): each keeps its own
-# shared-memory copy of the [1 + F, group tile] accumulators
-_WARPS = 8
-# shared memory one pass-1 block may take: two blocks fit an SM
-_SMEM_BUDGET = 96 << 10
+# csrc/fused_group.cu: warps of a row block, each with its own
+# shared-memory copy of the [1 + F, group tile] sums; fields per launch;
+# shared memory one block may take (227 KB); row blocks per launch over
+# all group tiles (one per SM of an H100); chunks of the blocks' fold
+_WARPS = 16
+_MAX_FIELDS = 4
+_SMEM_BUDGET = 232448
+_BLOCKS = 132
+_FOLD_CHUNKS = 16
+# csrc/prefix_sum.cu: rows a scan block takes
+_SCAN_TILE = 4096
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -144,12 +154,12 @@ def build() -> float:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.bydb_fused_group_multi.restype = i
         lib.bydb_fused_group_multi.argtypes = [
-            p, p, p, p, ll, i, i, i, p, p, p, i, p,
+            p, p, p, p, ll, i, i, i, i, p, p, p, i, p,
         ]
         lib.bydb_widen_narrow.restype = i
         lib.bydb_widen_narrow.argtypes = [p, i, ll, p, i, p]
         lib.bydb_prefix_sum_narrow.restype = i
-        lib.bydb_prefix_sum_narrow.argtypes = [p, ll, p, p, i, p]
+        lib.bydb_prefix_sum_narrow.argtypes = [p, ll, p, ctypes.c_uint, p, i, p]
         _lib = lib
     return time.perf_counter() - t0
 
@@ -173,15 +183,38 @@ def _expect(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 # -- fused_group_multi --------------------------------------------------------
 
 
+def _smem_bytes(gt: int, nf: int) -> int:
+    """Shared memory of one row block (csrc/fused_group.cu smem_bytes):
+    the warps' [1 + F, gt] f32 copies and [gt] byte tags."""
+    return 4 * _WARPS * (1 + nf) * gt + _WARPS * gt
+
+
 def _group_tile(num_groups: int, nf: int) -> int:
-    """Group-tile width of one pass-1 block: the whole (32-padded) group
-    axis, halved until the warps' accumulators fit the smem budget."""
-    gt = min(2048, -(-num_groups // 32) * 32)
-    while _WARPS * (1 + nf) * gt * 4 > _SMEM_BUDGET:
-        if gt <= 32:
+    """Group-tile width of one row block: from the fewest group tiles
+    (each reads every row once), the 32-padded width that is at most
+    2048 and whose copies fit the shared memory."""
+    ngt = -(-num_groups // 2048)
+    while True:
+        per_tile = -(-num_groups // ngt)
+        gt = -(-per_tile // 32) * 32
+        if _smem_bytes(gt, nf) <= _SMEM_BUDGET:
+            return gt
+        if gt == 32:
             raise ValueError(f"{nf} fields do not fit one group tile")
-        gt //= 2
-    return gt
+        ngt += 1
+
+
+def _partition(n: int, nf: int, num_groups: int) -> list[tuple[int, int]]:
+    """Tile ranges [t0, t1) of the row blocks of one group tile: P
+    contiguous ranges of the N / TILE tiles, P fixed by (N, F, G) alone
+    (about one block per SM over all group tiles, at most one per tile).
+    The kernel computes the same ranges from P."""
+    tiles = n // TILE
+    if tiles == 0:
+        return []
+    gt = _group_tile(num_groups, nf)
+    p = min(tiles, max(1, _BLOCKS // -(-num_groups // gt)))
+    return [(i * tiles // p, (i + 1) * tiles // p) for i in range(p)]
 
 
 def fused_group_multi_plain(codes, pred_mask, values, valid, num_groups: int):
@@ -234,21 +267,32 @@ def fused_group_multi(codes, pred_mask, values, valid, *, num_groups: int):
     sums = torch.empty((nf, num_groups), dtype=torch.float32, device=dev)
     if n == 0:
         return count.zero_(), sums.zero_()
-    gt = _group_tile(num_groups, nf)
-    gpad = -(-num_groups // gt) * gt
-    if gpad // gt > 65535:
-        raise ValueError(f"num_groups={num_groups} exceeds the group grid")
     build()
-    partials = torch.empty(
-        (n // TILE, 1 + nf, gpad), dtype=torch.float32, device=dev
+    # the kernel loads 16-byte vectors
+    codes, pred_mask, values, valid = (
+        t if t.data_ptr() % 16 == 0 else t.clone()
+        for t in (codes, pred_mask, values, valid)
     )
-    rc = _lib.bydb_fused_group_multi(
-        codes.data_ptr(), pred_mask.data_ptr(), values.data_ptr(),
-        valid.data_ptr(), n, nf, num_groups, gt, partials.data_ptr(),
-        count.data_ptr(), sums.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _check_rc(rc, "fused_group_multi")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # one launch per _MAX_FIELDS fields (the count comes from the first)
+    for f0 in range(0, max(nf, 1), _MAX_FIELDS):
+        k = min(_MAX_FIELDS, nf - f0)
+        gt = _group_tile(num_groups, k)
+        gpad = -(-num_groups // gt) * gt
+        if gpad // gt > 65535:
+            raise ValueError(f"num_groups={num_groups} exceeds the group grid")
+        blocks = len(_partition(n, k, num_groups))
+        pairs = torch.empty(
+            (blocks, 2, 1 + k, gpad), dtype=torch.float32, device=dev
+        )
+        cnt = count if f0 == 0 else torch.empty_like(count)
+        rc = _lib.bydb_fused_group_multi(
+            codes.data_ptr(), pred_mask.data_ptr(),
+            values.data_ptr() + f0 * n * 4, valid.data_ptr(), n, k,
+            num_groups, gt, blocks, pairs.data_ptr(), cnt.data_ptr(),
+            sums.data_ptr() + f0 * num_groups * 4, dev.index, stream,
+        )
+        _check_rc(rc, "fused_group_multi")
     LAUNCHES["fused_group_multi"] += 1
     return count, sums
 
@@ -301,6 +345,26 @@ def widen_narrow(x):
 
 # -- prefix_sum_narrow --------------------------------------------------------
 
+# (device index, stream) -> [status buffer, epoch of its last call]
+_scan_states: dict = {}
+_scan_lock = threading.Lock()
+
+
+def _scan_state(dev, stream: int, tiles: int):
+    """-> (status buffer, epoch) for one scan call on `stream`.  The
+    buffer (one status word per scan tile) is zeroed once when it is
+    made or grown; each call gets the next epoch, so words of earlier
+    calls read as unpublished (csrc/prefix_sum.cu)."""
+    key = (dev.index, stream)
+    with _scan_lock:
+        st = _scan_states.get(key)
+        if st is None or st[0].numel() < tiles or st[1] + 1 >= 1 << 30:
+            size = max(tiles, 1024)
+            st = [torch.zeros(size, dtype=torch.int64, device=dev), 0]
+            _scan_states[key] = st
+        st[1] += 1
+        return st[0], st[1]
+
 
 def prefix_sum_narrow_plain(x):
     """Plain PyTorch version: per-TILE inclusive sums plus the carry of
@@ -332,10 +396,11 @@ def prefix_sum_narrow(x):
     if n == 0:
         return out
     build()
-    scratch = torch.empty(n // TILE, dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    state, epoch = _scan_state(x.device, stream, -(-n // _SCAN_TILE))
     rc = _lib.bydb_prefix_sum_narrow(
-        x.data_ptr(), n, scratch.data_ptr(), out.data_ptr(), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), n, state.data_ptr(), epoch, out.data_ptr(),
+        x.device.index, stream,
     )
     _check_rc(rc, "prefix_sum_narrow")
     LAUNCHES["prefix_sum_narrow"] += 1

@@ -9,9 +9,13 @@ before the last line is printed:
 
 1. card: the card's name and power limit (``nvidia-smi``);
 2. build: compile the Hopper kernels from ``banyandb_tpu_torch/csrc``;
-3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes and at the edge cases, with its time, the plain
+3. kernels: each kernel against its plain PyTorch version (and the
+   group reduce against an f64 oracle) at the main path's shapes and at
+   the edge cases, twice (same bits), with its time, the plain
    version's, one PyTorch library call's and the memory-bound floor;
+   device times with the L2 flushed before each call by a read of 64 MB
+   (``ms``) and warm (``warm_ms``); ``fused_group_multi`` on uniform codes and on rows
+   stored by series (``sorted_ms``), the layout the main path feeds;
 4. executor path: 4,194,304 points (1,024 services x 8 regions) written
    through the memtable and ``PartWriter`` into four parts, read back,
    and queried with ``execute_aggregate`` — count/sum/avg/min/max TopN
@@ -119,50 +123,104 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
-def device_profile(fn, iters: int) -> dict:
-    """Device time per call of everything ``fn`` runs on the card, from
-    torch.profiler: {"total": ms, "<kernel>": ms, ...}."""
+FLUSH_BYTES = 64 << 20  # > the 50 MB L2: one pass over it evicts the inputs
+_flush = {}
+
+
+def flush_l2() -> None:
+    """Read a 64 MB buffer, so that the next call finds its inputs in
+    device memory, as a query's first touch of a chunk does.  A read
+    leaves clean lines: a write would leave dirty ones, whose write-back
+    would land inside the next timed call."""
+    import torch
+
+    if "buf" not in _flush:
+        _flush["buf"] = torch.ones(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    _flush["buf"].max()
+
+
+def _flush_keys() -> set:
+    """Profiler keys of what flush_l2 runs on the card (left out below)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if "keys" not in _flush:
+        flush_l2()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush_l2()
+            torch.cuda.synchronize()
+        _flush["keys"] = {
+            e.key for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0.0) > 0
+        }
+    return _flush["keys"]
+
+
+def device_profile(fn, iters: int, cold: bool = False) -> dict:
+    """Device time per call of everything ``fn`` runs on the card, from
+    torch.profiler: {"total": ms, "<kernel>": ms, ...}; with ``cold``,
+    the L2 is flushed before each call, outside what is counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    skip = _flush_keys() if cold else set()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if cold:
+                flush_l2()
             fn()
         torch.cuda.synchronize()
     out = {"total": 0.0}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
-        if us <= 0:
+        if us <= 0 or e.key in skip:
             continue
         out[e.key] = out.get(e.key, 0.0) + us / 1e3 / iters
         out["total"] += us / 1e3 / iters
     return out
 
 
-def timed_row(fn, plain, library, iters: int) -> dict:
-    """Event-timed ms per call (what a caller waits for, launch gaps
-    included) and profiler device ms per call, for the kernel, its
-    plain version and the library call."""
+def timed_row(fn, plain, library, iters: int, prefix: str = "") -> dict:
+    """Per call, for the kernel, its plain version and the library call:
+    device ms with a cold L2 (``ms``; what the bound is held against),
+    device ms with a warm L2 (``warm_ms``), both from the profiler, and
+    CUDA-event ms in a loop (``call_ms``: what a caller waits for, the
+    Python wrapper included).  ``prefix`` names a second input layout."""
     row = {}
     for key, f, n in (("", fn, iters), ("plain_", plain, 3), ("library_", library, iters)):
-        row[f"{key}call_ms"] = cuda_ms(f, n, 1 if key == "plain_" else 2)
-        prof = device_profile(f, n)
-        row[f"{key}ms"] = prof["total"]
+        if f is None:
+            continue
+        k = prefix + key
+        row[f"{k}call_ms"] = cuda_ms(f, n, 1 if key == "plain_" else 2)
+        cold = device_profile(f, n, cold=True)
+        warm = device_profile(f, n)
+        row[f"{k}ms"] = cold["total"]
+        row[f"{k}warm_ms"] = warm["total"]
         if key == "":
-            row["device_kernels"] = {
-                k: v for k, v in prof.items() if k != "total"
+            row[f"{prefix}device_kernels"] = {
+                name: (cold[name], warm.get(name)) for name in cold if name != "total"
             }
     return row
 
 
-def group_inputs(n: int, f: int, g: int, integer: bool, seed: int):
+def group_inputs(n: int, f: int, g: int, integer: bool, seed: int,
+                 layout: str = "uniform"):
+    """Codes uniform over [-1, g] (-1 and g, the spill code, must count
+    nowhere), or ``sorted``: rows stored by (series, ts) as parts keep
+    them — 8 g series over g groups (series // 8, group codes permuted),
+    runs of about N / 8 g rows; pred and valid drop rows at random at
+    the same rates either way."""
     import torch
 
     rng = np.random.default_rng(seed)
-    # codes over [-1, g]: -1 and g (the spill code) must count nowhere
-    codes = rng.integers(-1, g + 1, n).astype(np.int32)
+    if layout == "sorted":
+        series = np.sort(rng.integers(0, 8 * g, n))
+        codes = rng.permutation(g).astype(np.int32)[series // 8]
+    else:
+        codes = rng.integers(-1, g + 1, n).astype(np.int32)
     pred = rng.random(n) < 0.9
     valid = rng.random(n) < 0.95
     if integer:
@@ -178,16 +236,20 @@ def group_inputs(n: int, f: int, g: int, integer: bool, seed: int):
     )
 
 
-def compare_group(hk, n, f, g, integer, seed) -> float:
-    """Kernel vs plain on one input; -> max abs error of the sums."""
-    codes, pred, vals, valid = group_inputs(n, f, g, integer, seed)
-    kc, ks = hk.fused_group_multi(codes, pred, vals, valid, num_groups=g)
-    pc, ps = hk.fused_group_multi_plain(codes, pred, vals, valid, g)
+def compare_group(hk, n, f, g, integer, seed, layout="uniform") -> float:
+    """Kernel vs plain (and a second kernel run: the same bits) on one
+    input; counts against bincount and sums against an f64 oracle.
+    -> max abs error of the sums against the plain version."""
     import torch
 
+    codes, pred, vals, valid = group_inputs(n, f, g, integer, seed, layout)
+    kc, ks = hk.fused_group_multi(codes, pred, vals, valid, num_groups=g)
+    kc2, ks2 = hk.fused_group_multi(codes, pred, vals, valid, num_groups=g)
+    pc, ps = hk.fused_group_multi_plain(codes, pred, vals, valid, g)
     torch.cuda.synchronize()
+    what = f"fused_group_multi N={n} F={f} G={g} {layout} integer={integer}"
+    check(torch.equal(kc, kc2) and torch.equal(ks, ks2), f"{what}: two runs differ")
     kc, ks, pc, ps = (t.cpu().numpy() for t in (kc, ks, pc, ps))
-    what = f"fused_group_multi N={n} F={f} G={g} integer={integer}"
     check(kc.shape == (g,) and ks.shape == (f, g), f"{what}: shapes")
     check(np.array_equal(kc, pc), f"{what}: counts differ")
     if integer:
@@ -197,12 +259,20 @@ def compare_group(hk, n, f, g, integer, seed) -> float:
             np.allclose(ks, ps, rtol=RTOL, atol=0.0),
             f"{what}: sums beyond rtol={RTOL}",
         )
-    # an independent f64 oracle for the counts
+    # independent oracles: bincount for the counts, f64 sums
     c = codes.cpu().numpy()
+    v = vals.cpu().numpy().astype(np.float64)
     m = pred.cpu().numpy() & valid.cpu().numpy() & (c >= 0) & (c < g)
     check(
         np.array_equal(kc, np.bincount(c[m], minlength=g)[:g].astype(np.float32)),
         f"{what}: counts differ from bincount",
+    )
+    oracle = np.zeros((f, g))
+    for k in range(f):
+        oracle[k] = np.bincount(c[m], weights=v[k][m], minlength=g)
+    check(
+        np.allclose(ks, oracle, rtol=RTOL, atol=0.0),
+        f"{what}: sums beyond rtol={RTOL} of the f64 oracle",
     )
     err = float(np.max(np.abs(ks - ps))) if ks.size else 0.0
     log(f"  ok  {what}  max|kernel-plain| sums = {err!r}")
@@ -219,6 +289,12 @@ def kernel_phase(hk) -> dict:
     compare_group(hk, 65536, 2, 100, True, 3)  # G not a multiple of 128
     compare_group(hk, KERNEL_N, 1, 8192, True, 4)  # several group tiles
     compare_group(hk, KERNEL_N, 2, 8192, False, 5)
+    # fewer tiles than row blocks, a tile count no block count divides,
+    # F = 3 and F = 5 (two launches)
+    compare_group(hk, 2048, 2, KERNEL_G, False, 12)
+    compare_group(hk, 6144, 2, KERNEL_G, True, 13)
+    compare_group(hk, 133 * 2048, 3, 300, False, 14)
+    compare_group(hk, 65536, 5, 64, True, 15)
     try:
         codes, pred, vals, valid = group_inputs(2049, 1, 8, True, 6)
         hk.fused_group_multi(codes, pred, vals, valid, num_groups=8)
@@ -230,6 +306,10 @@ def kernel_phase(hk) -> dict:
     compare_group(hk, KERNEL_N, 1, KERNEL_G, False, 7)
     compare_group(hk, KERNEL_N, 2, KERNEL_G, True, 8)
     err = compare_group(hk, KERNEL_N, 2, KERNEL_G, False, 9)
+    # the layout the main path feeds: rows by series, runs of ~128
+    compare_group(hk, KERNEL_N, 1, KERNEL_G, False, 16, "sorted")
+    compare_group(hk, KERNEL_N, 2, KERNEL_G, True, 17, "sorted")
+    err = max(err, compare_group(hk, KERNEL_N, 2, KERNEL_G, False, 18, "sorted"))
 
     codes, pred, vals, valid = group_inputs(KERNEL_N, 2, KERNEL_G, False, 9)
     g = KERNEL_G
@@ -241,6 +321,10 @@ def kernel_phase(hk) -> dict:
     acc = torch.zeros((3, g + 1), device="cuda")
     n, f = KERNEL_N, 2
     moved = n * (4 + 1 + 1 + 4 * f) + (1 + f) * g * 4
+    scodes, spred, svals, svalid = group_inputs(n, f, g, False, 18, "sorted")
+    sm = spred & svalid
+    sslot = torch.where(sm, scodes, g).long()
+    srows = torch.cat([sm.float()[None], torch.where(sm, svals, 0.0)])
     rows["fused_group_multi"] = dict(
         name="fused_group_multi",
         route="cuda",
@@ -255,6 +339,13 @@ def kernel_phase(hk) -> dict:
             lambda: hk.fused_group_multi_plain(codes, pred, vals, valid, g),
             lambda: acc.zero_().index_add_(1, slot, rows_in),
             50,
+        ),
+        **timed_row(
+            lambda: hk.fused_group_multi(scodes, spred, svals, svalid, num_groups=g),
+            None,
+            lambda: acc.zero_().index_add_(1, sslot, srows),
+            50,
+            prefix="sorted_",
         ),
     )
 
@@ -321,13 +412,19 @@ def kernel_phase(hk) -> dict:
     )
     rows["prefix_sum_narrow"] = prefix_sum_rows(hk)
     for r in rows.values():
-        log(
-            f"  {r['name']} [{r['shape']}] device ms per call: kernel "
-            f"{r['ms']!r} {r['device_kernels']}, plain {r['plain_ms']!r}, "
-            f"library {r['library_ms']!r}, bound {r['bound_ms']!r}; "
-            f"event ms per call: kernel {r['call_ms']!r}, plain "
-            f"{r['plain_call_ms']!r}, library {r['library_call_ms']!r}"
-        )
+        for lay in ("", "sorted_"):
+            if f"{lay}ms" not in r:
+                continue
+            log(
+                f"  {r['name']} [{r['shape']}{' ' + lay[:-1] if lay else ''}] "
+                f"device ms per call, cold L2 / warm: kernel {r[lay + 'ms']!r} / "
+                f"{r[lay + 'warm_ms']!r} {r[lay + 'device_kernels']}, plain "
+                f"{r.get(lay + 'plain_ms')!r} / {r.get(lay + 'plain_warm_ms')!r}, "
+                f"library {r[lay + 'library_ms']!r} / {r[lay + 'library_warm_ms']!r}, "
+                f"bound {r['bound_ms']!r}; event ms per call: kernel "
+                f"{r[lay + 'call_ms']!r}, plain {r.get(lay + 'plain_call_ms')!r}, "
+                f"library {r[lay + 'library_call_ms']!r}"
+            )
     return rows
 
 
@@ -344,6 +441,10 @@ def prefix_sum_rows(hk) -> dict:
         "full int32 range": rng.integers(-(2**31), 2**31, 3 * t, dtype=np.int64),
         "wraps past 2^31": np.full(4 * t, 2**20),
         "wraps below -2^31": np.full(t, -(2**22)),
+        # 34 scan tiles of 4,096 rows (the last half full): not a multiple
+        # of the 32-tile look-back window
+        "odd window": rng.integers(-(2**31), 2**31, 67 * t, dtype=np.int64),
+        "8,192 tiles": rng.integers(-4096, 4096, 1 << 24),
         "main path": rng.integers(-4096, 4096, KERNEL_N),
     }
     for what, x in cases.items():
@@ -357,7 +458,9 @@ def prefix_sum_rows(hk) -> dict:
             torch.equal(out, plain) and np.array_equal(out.cpu().numpy(), want),
             f"prefix_sum_narrow {what} N={x.shape[0]}: differs from plain",
         )
-        log(f"  ok  prefix_sum_narrow {what} N={x.shape[0]} exact")
+        check(torch.equal(hk.prefix_sum_narrow(x), out),
+              f"prefix_sum_narrow {what} N={x.shape[0]}: two runs differ")
+        log(f"  ok  prefix_sum_narrow {what} N={x.shape[0]} exact, same bits twice")
     for bad in (torch.zeros(2049, dtype=torch.int32, device="cuda"),
                 torch.zeros(2048, dtype=torch.int16, device="cuda")):
         try:
@@ -994,7 +1097,8 @@ def main() -> int:
     for k, r in rows.items():
         r["launches_by_path"] = {p: c[k] for p, c in paths.items()}
         r["launches"] = sum(r["launches_by_path"].values())
-        del r["device_kernels"]  # logged in phase 3
+        for lay in ("", "sorted_"):
+            r.pop(lay + "device_kernels", None)  # logged in phase 3
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({

@@ -35,7 +35,12 @@ def dev():
 @pytest.mark.parametrize(
     "n,f,g,integer",
     [(0, 2, 16, True), (65536, 0, 64, True), (65536, 2, 100, True),
-     (1 << 20, 2, 1024, False), (1 << 18, 1, 8192, True)],
+     (1 << 20, 2, 1024, False), (1 << 18, 1, 8192, True),
+     # fewer tiles than row blocks; a tile count no block count divides
+     (2048, 2, 1024, False), (6144, 2, 1024, True), (133 * 2048, 2, 1024, False),
+     # several group tiles at F = 2; F = 0, 3 and 5 (two launches)
+     (1 << 18, 2, 8192, False), (1 << 18, 0, 8192, True), (65536, 3, 300, False),
+     (65536, 5, 64, True)],
 )
 def test_fused_group_multi_matches_plain(dev, n, f, g, integer):
     rng = np.random.default_rng(n + g)
@@ -60,6 +65,45 @@ def test_fused_group_multi_matches_plain(dev, n, f, g, integer):
     # the same bits on every run
     kc2, ks2 = hk.fused_group_multi(codes, pred, vals, valid, num_groups=g)
     assert torch.equal(kc, kc2) and torch.equal(ks, ks2)
+
+
+def _oracle_sums(codes, pred, vals, valid, g):
+    m = pred & valid & (codes >= 0) & (codes < g)
+    return np.stack([
+        np.bincount(codes[m], weights=v[m].astype(np.float64), minlength=g)
+        for v in vals
+    ])
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("n,f", [(1 << 20, 2), (1 << 20, 1), (6144, 2)])
+def test_fused_group_multi_series_sorted_runs(dev, n, f, integer):
+    """Rows stored by (series, ts), as parts keep them: 8,192 series over
+    1,024 groups (series // 8, codes permuted), runs of ~128 rows; pred
+    and valid drop rows at random inside the runs."""
+    rng = np.random.default_rng(21 + n + f)
+    g = 1024
+    series = np.sort(rng.integers(0, 8 * g, n))
+    codes = rng.permutation(g).astype(np.int32)[series // 8]
+    pred = rng.random(n) < 0.9
+    valid = rng.random(n) < 0.95
+    if integer:
+        vals = rng.integers(0, 100, (f, n)).astype(np.float32)
+    else:
+        vals = rng.gamma(2.0, 40.0, (f, n)).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (codes, pred, vals, valid)]
+    kc, ks = hk.fused_group_multi(*args, num_groups=g)
+    pc, ps = hk.fused_group_multi_plain(*args, g)
+    assert torch.equal(kc, pc)
+    kc2, ks2 = hk.fused_group_multi(*args, num_groups=g)
+    assert torch.equal(kc, kc2) and torch.equal(ks, ks2)
+    ks = ks.cpu().numpy()
+    if integer:
+        assert np.array_equal(ks, ps.cpu().numpy())
+    else:
+        np.testing.assert_allclose(ks, ps.cpu().numpy(), rtol=RTOL, atol=0)
+    np.testing.assert_allclose(ks, _oracle_sums(codes, pred, vals, valid, g),
+                               rtol=RTOL, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
@@ -121,14 +165,20 @@ def test_query_fused_and_staged_identical_on_card(dev, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "case", ["one-tile", "small", "wraps-past-2^31", "wide", "main-path"]
+    "case", ["one-tile", "small", "wraps-past-2^31", "wide", "main-path",
+             "2^24", "odd-window", "wraps-below-2^31"]
 )
 def test_prefix_sum_narrow_matches_plain(dev, case):
     rng = np.random.default_rng(11)
+    # odd-window: 34 scan tiles of 4,096 rows (the last half full), not a
+    # multiple of the 32-word look-back window
     n = {"one-tile": hk.TILE, "small": 2 * hk.TILE, "wraps-past-2^31": 4 * hk.TILE,
-         "wide": 3 * hk.TILE, "main-path": 1 << 20}[case]
+         "wide": 3 * hk.TILE, "main-path": 1 << 20, "2^24": 1 << 24,
+         "odd-window": 67 * hk.TILE, "wraps-below-2^31": 2048 * hk.TILE}[case]
     if case == "wraps-past-2^31":
         x = np.full(n, 2**20, dtype=np.int32)
+    elif case == "wraps-below-2^31":
+        x = np.full(n, -(2**10), dtype=np.int32)
     elif case == "wide":
         x = rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
     else:
@@ -140,6 +190,8 @@ def test_prefix_sum_narrow_matches_plain(dev, case):
     assert hk.LAUNCHES["prefix_sum_narrow"] == before + 1
     assert torch.equal(out, hk.prefix_sum_narrow_plain(xt))
     assert np.array_equal(out.cpu().numpy(), np.cumsum(x, dtype=np.int32))
+    # the same bits on a second run (the look-back groups tiles anew)
+    assert torch.equal(hk.prefix_sum_narrow(xt), out)
 
 
 def test_delta_decode_launches_the_kernel(dev):

@@ -136,3 +136,117 @@ def test_plain_fallback_only_for_cpu_tensors():
         "fused_group_multi": 0, "fused_group_sum": 0, "widen_narrow": 0,
         "prefix_sum_narrow": 0,
     }
+
+
+# -- the card kernel's fold order, modelled in numpy ---------------------------
+#
+# csrc/fused_group.cu sums each 2048-row tile into an f32 partial, folds
+# a row block's tiles in tile order with Kahan (blocks from
+# hk._partition), then folds the blocks' (sum, compensation) pairs in
+# float-float: in block order within each of hk._FOLD_CHUNKS chunks, then
+# over the chunks in order.  The model takes each tile partial rounded
+# once from f64 (the kernel's in-tile order is not modelled; integer
+# partials are exact either way) and the fold exactly as the kernel
+# does it, in f32 (adds only, so no FMA contraction on the card).
+
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _ff_add(hi, lo, bh, bl):
+    s, e = _two_sum(hi, bh)
+    e = e + (lo + bl)
+    hi = s + e
+    return hi, e - (hi - s)
+
+
+def _fold_model(codes, pred, vals, valid, g):
+    n, nf = codes.shape[0], vals.shape[0]
+    tiles = n // hk.TILE
+    m = pred & valid & (codes >= 0) & (codes < g)
+    slot = (np.arange(n) // hk.TILE * g + codes)[m]
+    parts = np.stack(
+        [np.bincount(slot, minlength=tiles * g)]
+        + [np.bincount(slot, weights=vals[k][m].astype(np.float64),
+                       minlength=tiles * g) for k in range(nf)]
+    ).reshape(1 + nf, tiles, g).astype(np.float32)
+    pairs = []
+    for t0, t1 in hk._partition(n, nf, g):
+        s = np.zeros((1 + nf, g), np.float32)
+        c = np.zeros_like(s)
+        for t in range(t0, t1):
+            y = parts[:, t] - c
+            u = s + y
+            c = (u - s) - y
+            s = u
+        pairs.append(_two_sum(s, -c))
+    blocks, k = len(pairs), hk._FOLD_CHUNKS
+    zero = np.zeros((1 + nf, g), np.float32)
+    hi, lo = zero, zero
+    for w in range(k):
+        chi, clo = zero, zero
+        for p in range(w * blocks // k, (w + 1) * blocks // k):
+            chi, clo = _ff_add(chi, clo, *pairs[p])
+        hi, lo = _ff_add(hi, lo, chi, clo)
+    out = hi + lo
+    return out[0], out[1:]
+
+
+@pytest.mark.parametrize("nf,g", [(2, 1024), (1, 8192), (0, 16), (2, 8192), (3, 300)])
+def test_partition_covers_every_tile_once(nf, g):
+    for n in range(0, (1 << 22) + 1, hk.TILE):
+        blocks = hk._partition(n, nf, g)
+        tiles = n // hk.TILE
+        assert blocks == hk._partition(n, nf, g)  # fixed by (N, F, G)
+        assert len(blocks) <= min(tiles, hk._BLOCKS)
+        assert [t for t0, t1 in blocks for t in range(t0, t1)] == list(range(tiles))
+        assert all(t1 > t0 for t0, t1 in blocks)
+
+
+@pytest.mark.parametrize(
+    "g,nf", [(1024, 2), (1024, 1), (100, 2), (16, 0), (300, 3), (8192, 2),
+             (8192, 4), (100000, 2)]
+)
+def test_group_tile_fits_one_block(g, nf):
+    gt = hk._group_tile(g, nf)
+    assert gt % 32 == 0 and 32 <= gt <= 2048
+    assert hk._smem_bytes(gt, nf) <= hk._SMEM_BUDGET
+    if g <= 1024 and nf <= 2:
+        assert gt >= g  # one group tile: every row read once
+
+
+def _plain_np(codes, pred, vals, valid, g):
+    c, s = hk.fused_group_multi_plain(
+        torch.from_numpy(codes), torch.from_numpy(pred),
+        torch.from_numpy(vals), torch.from_numpy(valid), g,
+    )
+    return c.numpy(), s.numpy()
+
+
+@pytest.mark.parametrize("n", [2048, 6144, 133 * 2048, 1 << 20])
+def test_fold_model_integer_data_bit_equal_to_plain(n):
+    args = _inputs(n, 2, 1024, True, seed=n)
+    mc, ms = _fold_model(*args, 1024)
+    pc, ps = _plain_np(*args, 1024)
+    assert np.array_equal(mc, pc)
+    assert np.array_equal(ms, ps)
+
+
+@pytest.mark.parametrize("n,g", [(1 << 20, 1024), (1001 * 2048, 1024), (133 * 2048, 8192),
+                                 (3 * 2048, 64)])
+def test_fold_model_gamma_data_within_rtol(n, g):
+    codes, pred, vals, valid = _inputs(n, 2, g, False, seed=n + 1)
+    mc, ms = _fold_model(codes, pred, vals, valid, g)
+    pc, ps = _plain_np(codes, pred, vals, valid, g)
+    assert np.array_equal(mc, pc)
+    np.testing.assert_allclose(ms, ps, rtol=RTOL, atol=0)
+    m = pred & valid & (codes < g)
+    oracle = np.stack([
+        np.bincount(codes[m], weights=vals[k][m].astype(np.float64), minlength=g)
+        for k in range(2)
+    ])
+    np.testing.assert_allclose(ms, oracle, rtol=RTOL, atol=0)
+    np.testing.assert_allclose(ps, oracle, rtol=RTOL, atol=0)
