@@ -35,11 +35,24 @@ before the last line is printed:
 7. determinism: the ``scatter`` (G = 16,384) and ``sort``
    (G = 100,000) group reduce of non-integer values, twice on the card
    (same bytes) and against the CPU;
-8. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
+8. stream path: 4,194,304 log elements (54 services, 1,080 instances,
+   4 levels, a 16-byte id and a 64-byte body each, 1 ms apart) written
+   through ``StreamEngine.write`` (group ``sw``, ``shard_num=2``, an
+   inverted rule on ``level`` and a skipping rule on ``instance``, four
+   batches, a flush after each: eight parts), then four BydbQL queries
+   (eq, ne, in, not_in, each with a LIMIT) three times on the card and
+   once on a ``device="cpu"`` engine over the same parts, against a
+   numpy oracle; every source's tag mask must take the card;
+9. host-only models: ``TraceEngine`` (by-id, ordered, one BydbQL scan)
+   and ``PropertyEngine`` (apply, query, revisions) at a small size
+   against plain Python;
+10. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
-Every launch count is set to 0 just before a path (4, 5, 6) is driven
-and read just after it; each kernel of a path must have launched there.
+Every launch count is set to 0 just before a path (4, 5, 6, 8) is
+driven and read just after it; each kernel of a path must have launched
+there (the stream path launches none of the four kernels: its mask is
+PyTorch compares on the card).
 
 The query's data: the BASELINE.json configuration "service_resp_time
 avg+percentile, 1k series, groupBy service_id" — ``latency`` drawn from
@@ -1050,6 +1063,352 @@ def determinism_phase() -> None:
         )
 
 
+# -- phase 8: the stream path --------------------------------------------------
+
+STREAM_N = 4 << 20
+STREAM_BATCHES = 4
+N_INST_PER_SVC = 20  # 54 services x 20 = 1,080 instances
+N_STREAM_SVC = 54
+LEVELS = ("INFO", "WARN", "ERROR", "DEBUG")
+LEVEL_P = (0.70, 0.20, 0.08, 0.02)
+
+
+def stream_registry(root: str):
+    from banyandb_tpu_torch.api import (
+        Catalog, Group, IndexRule, ResourceOpts, SchemaRegistry, Stream, TagSpec,
+        TagType,
+    )
+
+    reg = SchemaRegistry(os.path.join(root, "schema"))
+    reg.create_group(Group(ENGINE_GROUP, Catalog.STREAM, ResourceOpts(shard_num=2)))
+    reg.create_stream(
+        Stream(
+            group=ENGINE_GROUP,
+            name="log",
+            tags=(
+                TagSpec("svc", TagType.STRING),
+                TagSpec("instance", TagType.STRING),
+                TagSpec("level", TagType.STRING),
+            ),
+            entity=("svc", "instance"),
+        )
+    )
+    reg.create_index_rule(
+        IndexRule(group=ENGINE_GROUP, name="level_idx", tags=("level",), type="inverted")
+    )
+    reg.create_index_rule(
+        IndexRule(group=ENGINE_GROUP, name="instance_skip", tags=("instance",),
+                  type="skipping")
+    )
+    return reg
+
+
+def svc_name(i: int) -> str:
+    return "service-%02d" % i
+
+
+def inst_name(j: int) -> str:
+    return "instance-%02d-%02d" % (j // N_INST_PER_SVC, j % N_INST_PER_SVC)
+
+
+def make_elements(n: int, seed: int) -> dict:
+    """Log elements 1 ms apart: an instance drawn uniformly (its service
+    follows), a level drawn INFO 70 %, WARN 20 %, ERROR 8 %, DEBUG 2 %,
+    a 16-byte element id and a 64-byte body of letters."""
+    rng = np.random.default_rng(seed)
+    inst = rng.integers(0, N_STREAM_SVC * N_INST_PER_SVC, n).astype(np.int32)
+    return {
+        "ts": T0 + np.arange(n, dtype=np.int64),
+        "inst": inst,
+        "svc": inst // N_INST_PER_SVC,
+        "level": rng.choice(len(LEVELS), n, p=LEVEL_P).astype(np.int32),
+        "body": rng.integers(97, 123, (n, 64), dtype=np.uint8),
+    }
+
+
+def element_values(els: dict, lo: int, hi: int) -> list:
+    from banyandb_tpu_torch.models.stream import ElementValue
+
+    svc = [svc_name(i) for i in range(N_STREAM_SVC)]
+    inst = [inst_name(j) for j in range(N_STREAM_SVC * N_INST_PER_SVC)]
+    body = els["body"][lo:hi].tobytes()
+    return [
+        ElementValue(
+            element_id="%016x" % i,
+            ts_millis=int(els["ts"][i]),
+            tags={"svc": svc[els["svc"][i]], "instance": inst[els["inst"][i]],
+                  "level": LEVELS[els["level"][i]]},
+            body=body[(i - lo) * 64: (i - lo + 1) * 64],
+        )
+        for i in range(lo, hi)
+    ]
+
+
+def stream_queries(n: int) -> dict:
+    """BydbQL text of the four queries (eq, ne, in, not_in), each chosen
+    to match fewer than about 20,000 of the elements before its LIMIT;
+    -> {name: (text, numpy predicate over the elements)}."""
+    frm = f"FROM STREAM log IN {ENGINE_GROUP} TIME BETWEEN {T0} AND {T0 + n - 1}"
+    sel = f"SELECT svc, instance, level {frm}"
+    insts3 = [3 * N_INST_PER_SVC + k for k in range(N_INST_PER_SVC)]
+    lv = {v: i for i, v in enumerate(LEVELS)}
+
+    def quoted(names):
+        return ", ".join(f"'{x}'" for x in names)
+
+    return {
+        "eq": (
+            f"{sel} WHERE svc = '{svc_name(7)}' AND level = 'ERROR' LIMIT 100",
+            lambda e: (e["svc"] == 7) & (e["level"] == lv["ERROR"]),
+        ),
+        "ne": (
+            f"{sel} WHERE svc = '{svc_name(11)}' AND instance != '{inst_name(220)}' "
+            "AND level != 'INFO' AND level != 'WARN' LIMIT 100",
+            lambda e: (e["svc"] == 11) & (e["inst"] != 220)
+            & (e["level"] != lv["INFO"]) & (e["level"] != lv["WARN"]),
+        ),
+        "in": (
+            f"{sel} WHERE instance IN ({quoted(inst_name(j) for j in insts3)}) "
+            "AND level IN ('ERROR', 'DEBUG') LIMIT 1000",
+            lambda e: np.isin(e["inst"], insts3)
+            & np.isin(e["level"], [lv["ERROR"], lv["DEBUG"]]),
+        ),
+        "not_in": (
+            f"{sel} WHERE svc = '{svc_name(20)}' AND instance NOT IN "
+            f"('{inst_name(400)}', '{inst_name(401)}') "
+            "AND level NOT IN ('INFO', 'WARN') LIMIT 1000",
+            lambda e: (e["svc"] == 20) & ~np.isin(e["inst"], [400, 401])
+            & ~np.isin(e["level"], [lv["INFO"], lv["WARN"]]),
+        ),
+    }
+
+
+def stream_rows(res) -> list:
+    return [
+        (dp["element_id"], dp["timestamp"], tuple(sorted(dp["tags"].items())),
+         bytes(dp["body"]))
+        for dp in res.data_points
+    ]
+
+
+def stream_oracle(els: dict, pred, req) -> tuple:
+    """-> (rows the query must return, elements that match before the
+    limit), by plain numpy over the written elements: newest first."""
+    tr = req.time_range
+    m = pred(els) & (els["ts"] >= tr.begin_millis) & (els["ts"] < tr.end_millis)
+    idx = np.nonzero(m)[0][::-1][req.offset or 0:][: req.limit]
+    rows = [
+        ("%016x" % i, int(els["ts"][i]),
+         tuple(sorted({"svc": svc_name(els["svc"][i]),
+                       "instance": inst_name(els["inst"][i]),
+                       "level": LEVELS[els["level"][i]]}.items())),
+         els["body"][i].tobytes())
+        for i in idx
+    ]
+    return rows, int(m.sum())
+
+
+def stream_query_profile(eng, req) -> str:
+    """Device time of one card query from torch.profiler: everything on
+    the card, the host-to-device copies, and the rest (the mask's
+    compares, reductions and the one mask copy back); the idle share
+    against the host wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.query(req)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = h2d = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us <= 0:
+            continue
+        busy += us / 1e3
+        if "HtoD" in e.key:
+            h2d += us / 1e3
+    return (
+        f"device busy {busy!r} ms (H2D copies {h2d!r}, mask compute and D2H "
+        f"{busy - h2d!r}) of {wall!r} ms wall, idle share {1 - busy / wall!r}"
+    )
+
+
+def stream_path(hk, n: int, device: str, root: str) -> dict:
+    """Write log elements through StreamEngine.write (four batches, a
+    flush after each), ask the four BydbQL queries three times on
+    `device` and once on a device="cpu" engine over the same parts, hold
+    both against the numpy oracle; -> the kernel launch counts of the
+    card runs (none of the four kernels is on this path)."""
+    from banyandb_tpu_torch import bydbql
+    from banyandb_tpu_torch.models.stream import StreamEngine
+    from banyandb_tpu_torch.obs.tracer import Tracer
+    from banyandb_tpu_torch.query import stream_exec
+
+    els = make_elements(n, SEED + 2)
+    reg = stream_registry(root)
+    eng = StreamEngine(reg, os.path.join(root, "data"), device=device)
+    bounds = np.linspace(0, n, STREAM_BATCHES + 1).astype(np.int64)
+    make_s = write_s = 0.0
+    flush_s = []
+    for k in range(STREAM_BATCHES):
+        t0 = time.perf_counter()
+        batch = element_values(els, int(bounds[k]), int(bounds[k + 1]))
+        t1 = time.perf_counter()
+        eng.write(ENGINE_GROUP, "log", batch)
+        t2 = time.perf_counter()
+        eng.flush()
+        flush_s.append(time.perf_counter() - t2)
+        make_s += t1 - t0
+        write_s += t2 - t1
+        del batch
+    db = eng._tsdb(ENGINE_GROUP)
+    parts = [p for seg in db.segments for sh in seg.shards for p in sh.parts]
+    check(len(parts) == 2 * STREAM_BATCHES, f"stream: {len(parts)} parts")
+    small = [p.total_count for p in parts if p.total_count < stream_exec.DEVICE_MIN_ROWS]
+    check(not small, f"stream: parts below DEVICE_MIN_ROWS: {small}")
+    for p in parts:
+        check((p.dir / "eidx_level.bin").exists() and (p.dir / "tff_instance.bin").exists(),
+              f"stream: index sidecars missing in {p.dir.name}")
+    log(
+        f"  wrote {n} elements in {STREAM_BATCHES} batches through StreamEngine.write: "
+        f"{write_s!r} s ({n / write_s!r} elements/s; ElementValue construction "
+        f"{make_s!r} s apart), flush s {flush_s!r}; {len(parts)} parts of rows "
+        f"{sorted(p.total_count for p in parts)} with eidx_level/tff_instance sidecars"
+    )
+    queries = stream_queries(n)
+    reqs = {name: bydbql.parse(ql) for name, (ql, _pred) in queries.items()}
+    card = {}
+    hk.reset_launches()
+    stream_exec.reset_stats()
+    for name, req in reqs.items():
+        before = dict(stream_exec.STATS)
+        runs = []
+        for _ in range(3):
+            tr = Tracer("stream")
+            t1 = time.perf_counter()
+            res = eng.query(req, tracer=tr)
+            runs.append((stream_rows(res), (time.perf_counter() - t1) * 1e3, tr.finish()))
+        stats = dict(eng.last_scan_stats)
+        masks = {k: stream_exec.STATS[k] - before[k] for k in before}
+        for rows, _ms, _t in runs[1:]:
+            check(rows == runs[0][0], f"stream {name}: repeat run differs")
+        # one device mask per source (a part with blocks to read) per run
+        check(masks["host_masks"] == 0 and masks["device_masks"] == 3 * len(parts),
+              f"stream {name}: mask routes {masks}")
+        scan = find_span(runs[-1][2], "scan")
+        log(f"  stream {name}: {queries[name][0]}")
+        log(
+            f"  stream {name} wall ms {[r[1] for r in runs]!r}; scan span ms "
+            f"{[find_span(r[2], 'scan')['duration_ms'] for r in runs]!r} "
+            f"({scan['tags'].get('rows')} rows decoded); device masks per query "
+            f"{masks['device_masks'] // 3} (one per source), H2D bytes per query "
+            f"{masks['h2d_bytes'] // 3}; scan stats {stats}"
+        )
+        card[name] = (runs[0][0], stats)
+    launches = dict(hk.LAUNCHES)
+    log(f"  kernel launches over the stream card runs: {launches}; masks {stream_exec.STATS}")
+    if device == "cuda":
+        for name, req in reqs.items():
+            log(f"  stream {name} profile: {stream_query_profile(eng, req)}")
+    eng.close()
+
+    cpu = StreamEngine(reg, os.path.join(root, "data"), device="cpu")
+    try:
+        for name, req in reqs.items():
+            t1 = time.perf_counter()
+            crows = stream_rows(cpu.query(req))
+            cms = (time.perf_counter() - t1) * 1e3
+            rows, stats = card[name]
+            check(crows == rows, f"stream {name}: card and cpu rows differ")
+            check(cpu.last_scan_stats == stats,
+                  f"stream {name}: scan stats differ {cpu.last_scan_stats} vs {stats}")
+            want, matched = stream_oracle(els, queries[name][1], req)
+            check(rows == want, f"stream {name}: rows differ from the numpy oracle")
+            check(0 < len(rows) <= matched <= 20_000,
+                  f"stream {name}: {matched} matches before the limit")
+            log(
+                f"  ok  stream {name}: {len(rows)} rows (of {matched} matching) equal "
+                f"on the card, a device='cpu' engine ({cms:.1f} ms) and numpy; "
+                f"scan stats equal"
+            )
+    finally:
+        cpu.close()
+    return launches
+
+
+# -- phase 9: the host-only models ---------------------------------------------
+
+
+def host_models_phase(root: str) -> None:
+    """TraceEngine (by-id, ordered, one BydbQL scan) and PropertyEngine
+    (apply, query, revisions) at a small size against plain Python."""
+    from banyandb_tpu_torch import bydbql
+    from banyandb_tpu_torch.api import (
+        Catalog, Group, ResourceOpts, SchemaRegistry, TagSpec, TagType, TimeRange,
+    )
+    from banyandb_tpu_torch.api.schema import Trace
+    from banyandb_tpu_torch.models.property import Property, PropertyEngine
+    from banyandb_tpu_torch.models.trace import SpanValue, TraceEngine
+    from banyandb_tpu_torch.query import ql_exec
+
+    reg = SchemaRegistry(os.path.join(root, "schema"))
+    reg.create_group(Group("tg", Catalog.TRACE, ResourceOpts(shard_num=2)))
+    reg.create_group(Group("pg", Catalog.PROPERTY, ResourceOpts(shard_num=2)))
+    eng = TraceEngine(reg, os.path.join(root, "data"))
+    eng.create_trace(Trace(
+        group="tg", name="spans",
+        tags=(TagSpec("trace_id", TagType.STRING), TagSpec("svc", TagType.STRING),
+              TagSpec("duration", TagType.INT)),
+        trace_id_tag="trace_id",
+    ))
+    rows = [
+        (T0 + t * 10 + s, {"trace_id": f"t{t}", "svc": f"s{t % 5}",
+                           "duration": t * 100 + s * 7}, f"sp-{t}-{s}".encode())
+        for t in range(200) for s in range(3)
+    ]
+    for lo in (0, 300):  # two flushes: two parts a shard
+        eng.write("tg", "spans", [SpanValue(*r) for r in rows[lo:lo + 300]],
+                  ordered_tags=("duration",))
+        eng.flush()
+    try:
+        got = eng.query_by_trace_id("tg", "spans", "t17")
+        want = [(ts, p) for ts, tg, p in rows if tg["trace_id"] == "t17"]
+        check([(s["timestamp"], bytes(s["span"])) for s in got] == want,
+              "trace: by-id differs from the oracle")
+        tr = TimeRange(T0, T0 + 2000 + 10)
+        got = eng.query_ordered("tg", "spans", "duration", tr, limit=5)
+        check(got == [f"t{199 - i}" for i in range(5)], f"trace: ordered {got}")
+        ql = ("SELECT * FROM TRACE spans IN tg WHERE svc = 's3' AND duration >= 5000 "
+              "LIMIT 1000")
+        _cat, req = bydbql.parse_with_catalog(ql)
+        res = ql_exec.execute_trace_ql(eng, req)
+        want = sorted((ts, p) for ts, tg, p in rows
+                      if tg["svc"] == "s3" and tg["duration"] >= 5000)
+        check([(d["timestamp"], bytes(d["span"])) for d in res.data_points] == want,
+              "trace: BydbQL scan differs from the oracle")
+        log(f"  ok  trace: by-id, ordered and a BydbQL scan ({len(want)} spans) equal "
+            "plain Python")
+    finally:
+        eng.close()
+    peng = PropertyEngine(reg, os.path.join(root, "data"))
+    try:
+        first = [peng.apply(Property("pg", "node", f"n{i}", {"role": ("data", "liaison")[i % 2]}))
+                 for i in range(50)]
+        upd = peng.apply(Property("pg", "node", "n3", {"zone": "z1"}))
+        check(upd.tags == {"role": "liaison", "zone": "z1"}, "property: merge apply")
+        check(upd.create_revision == first[3].create_revision
+              and upd.mod_revision > first[-1].mod_revision, "property: revisions")
+        data = sorted(p.id for p in peng.query("pg", "node", tag_filters={"role": "data"}))
+        check(data == sorted(f"n{i}" for i in range(50) if i % 2 == 0),
+              "property: tag query differs from the oracle")
+        check(peng.revision >= upd.mod_revision, "property: engine revision")
+        log("  ok  property: apply, merge, revisions and a tag query equal plain Python")
+    finally:
+        peng.close()
+
+
 def main() -> int:
     try:
         import torch
@@ -1091,6 +1450,12 @@ def main() -> int:
         paths["engine"] = engine_path(hk, N_POINTS, "cuda", root)
     log("[7] determinism of the scatter and sort group reduce")
     determinism_phase()
+    with tempfile.TemporaryDirectory(prefix="bydb-smoke-stream-") as root:
+        log(f"[8] stream path: {STREAM_N} log elements through StreamEngine and BydbQL")
+        paths["stream"] = stream_path(hk, STREAM_N, "cuda", root)
+    with tempfile.TemporaryDirectory(prefix="bydb-smoke-models-") as root:
+        log("[9] host-only models: TraceEngine and PropertyEngine")
+        host_models_phase(root)
     for path, kernels in PATH_KERNELS.items():
         for k in kernels:
             check(paths[path][k] > 0, f"{k}: not launched on the {path} path")

@@ -245,3 +245,82 @@ def test_kernel_keeps_non_finite_values_in_their_group(dev):
     ks, ps = ks.cpu().numpy()[0], ps.cpu().numpy()[0]
     assert np.array_equal(ks, ps, equal_nan=True)
     assert np.array_equal(np.isfinite(ks), ~np.isin(np.arange(g), [1, 2, 3]))
+
+
+@pytest.mark.parametrize("width", [8, 16, 32])
+@pytest.mark.parametrize("absent", [False, True])
+def test_stream_device_mask_equals_host_mask(dev, width, absent):
+    """The stream tag mask built on the card equals the host mask, for
+    narrow and i32 code columns, an absent column and literals missing
+    from the dictionary, at sizes around DEVICE_MIN_ROWS."""
+    from banyandb_tpu_torch.api.model import Condition
+    from banyandb_tpu_torch.query import filter as qfilter
+    from banyandb_tpu_torch.query import stream_exec
+    from banyandb_tpu_torch.storage.part import ColumnData
+
+    rng = np.random.default_rng(width + absent)
+    dt = {8: np.int8, 16: np.int16, 32: np.int32}[width]
+    for n in (stream_exec.DEVICE_MIN_ROWS - 1, stream_exec.DEVICE_MIN_ROWS, 1 << 19):
+        tags = {"ta": rng.integers(0, 8, n).astype(dt)}
+        if not absent:
+            tags["tb"] = rng.integers(0, 4, n).astype(dt)
+        src = ColumnData(
+            ts=np.arange(n, dtype=np.int64), series=np.zeros(n, np.int64),
+            version=np.zeros(n, np.int64), tags=tags, fields={},
+            dicts={"ta": [b"a%d" % i for i in range(8)],
+                   "tb": [b"b%d" % i for i in range(4)]},
+        )
+        for conds in (
+            [Condition("ta", "eq", "a3"), Condition("tb", "in", ["b1", "b2", "b9"])],
+            [Condition("ta", "ne", "a9"), Condition("tb", "not_in", ["b0"])],
+            [Condition("ta", "in", ["a1", "a8"]), Condition("ta", "ne", "a1")],
+        ):
+            want = qfilter.row_mask(src, conds, 10, n - 10)
+            dev_tag = stream_exec.device_tag_mask(src, conds, dev)
+            np.testing.assert_array_equal((src.ts >= 10) & (src.ts < n - 10) & dev_tag, want)
+            stream_exec.reset_stats()
+            np.testing.assert_array_equal(stream_exec.row_mask(src, conds, 10, n - 10, dev), want)
+            route = "device_masks" if n >= stream_exec.DEVICE_MIN_ROWS else "host_masks"
+            assert stream_exec.STATS[route] == 1
+
+
+def test_stream_engine_on_card_equals_cpu(dev, tmp_path):
+    """A small StreamEngine on the card answers like one on the CPU over
+    the same parts, every large source taking the card's mask."""
+    from banyandb_tpu_torch import bydbql
+    from banyandb_tpu_torch.api import (
+        Catalog, Group, IndexRule, ResourceOpts, SchemaRegistry, Stream, TagSpec, TagType,
+    )
+    from banyandb_tpu_torch.models.stream import ElementValue, StreamEngine
+    from banyandb_tpu_torch.query import stream_exec
+
+    t0, n = 1_700_000_000_000, 1 << 17
+    reg = SchemaRegistry(tmp_path)
+    reg.create_group(Group("sg", Catalog.STREAM, ResourceOpts(shard_num=2)))
+    reg.create_stream(Stream(
+        group="sg", name="logs",
+        tags=(TagSpec("svc", TagType.STRING), TagSpec("level", TagType.STRING)),
+        entity=("svc",),
+    ))
+    reg.create_index_rule(IndexRule(group="sg", name="lvl", tags=("level",), type="skipping"))
+    card = StreamEngine(reg, tmp_path / "data", device=dev)
+    rng = np.random.default_rng(2)
+    svc, lvl = rng.integers(0, 300, n), rng.integers(0, 4, n)
+    card.write("sg", "logs", [
+        ElementValue(f"e{i}", t0 + i, {"svc": f"s{svc[i]}", "level": f"L{lvl[i]}"},
+                     b"body%d" % i)
+        for i in range(n)
+    ])
+    card.flush()
+    cpu = StreamEngine(reg, tmp_path / "data", device="cpu")
+    frm = f"FROM STREAM logs IN sg TIME BETWEEN {t0} AND {t0 + n}"
+    for where in ("svc = 's7' AND level != 'L0'", "svc IN ('s1', 's2', 's404')",
+                  "level NOT IN ('L0', 'L1', 'L2') AND svc != 's3'"):
+        req = bydbql.parse(f"SELECT svc, level {frm} WHERE {where} LIMIT 300")
+        stream_exec.reset_stats()
+        got = card.query(req).data_points
+        assert stream_exec.STATS["device_masks"] > 0 and stream_exec.STATS["host_masks"] == 0
+        assert got == cpu.query(req).data_points and got
+        assert card.last_scan_stats == cpu.last_scan_stats
+    card.close()
+    cpu.close()

@@ -250,6 +250,59 @@ _ISOLATION = textwrap.dedent(
             "SELECT count(v) FROM MEASURE m IN g TIME BETWEEN 0 AND 4095 GROUP BY svc"))
         assert sorted(res.values["count"]) == [1365.0, 1365.0, 1366.0], res.values
         eng.close()
+
+    import torch
+    from banyandb_tpu_torch.api import IndexRule, Stream, TagSpec, TagType
+    from banyandb_tpu_torch.api.schema import Trace
+    from banyandb_tpu_torch.models.property import Property, PropertyEngine
+    from banyandb_tpu_torch.models.stream import ElementValue, StreamEngine
+    from banyandb_tpu_torch.models.trace import SpanValue, TraceEngine
+    from banyandb_tpu_torch.query import ql_exec, stream_exec
+    import banyandb_tpu_torch.models.property_repair, banyandb_tpu_torch.models.trace_pipeline
+
+    with tempfile.TemporaryDirectory() as root:
+        reg = SchemaRegistry(Path(root))
+        reg.create_group(Group("s", Catalog.STREAM, ResourceOpts(shard_num=1)))
+        reg.create_group(Group("p", Catalog.PROPERTY, ResourceOpts(shard_num=2)))
+        reg.create_stream(Stream("s", "logs", (TagSpec("svc", TagType.STRING),
+                                               TagSpec("lvl", TagType.STRING)), ("svc",)))
+        reg.create_index_rule(IndexRule(group="s", name="i", tags=("lvl",), type="skipping"))
+        available = torch.cuda.is_available
+        torch.cuda.is_available = lambda: False
+        try:
+            StreamEngine(reg, Path(root) / "data")
+            raise AssertionError("StreamEngine ran without CUDA or device='cpu'")
+        except RuntimeError:
+            pass
+        torch.cuda.is_available = available
+        st = StreamEngine(reg, Path(root) / "data", device="cpu")
+        st.write("s", "logs", [ElementValue(f"e{i}", i, {"svc": "abc"[i % 3], "lvl": "EW"[i % 2]})
+                               for i in range(40000)])
+        st.flush()
+        stream_exec.reset_stats()
+        res = st.query(bydbql.parse(
+            "SELECT lvl FROM STREAM logs IN s TIME BETWEEN 0 AND 40000 "
+            "WHERE lvl = 'E' AND svc != 'c' LIMIT 3"))
+        assert [d["element_id"] for d in res.data_points] == ["e39996", "e39994", "e39990"]
+        assert stream_exec.STATS["device_masks"] == 1, stream_exec.STATS
+        st.close()
+        reg.create_trace(Trace("s", "spans", (TagSpec("trace_id", TagType.STRING),
+                                              TagSpec("d", TagType.INT)), "trace_id"))
+        tr = TraceEngine(reg, Path(root) / "data")
+        tr.write("s", "spans", [SpanValue(i, {"trace_id": f"t{i % 4}", "d": i}, b"x%d" % i)
+                                for i in range(40)], ordered_tags=("d",))
+        tr.flush()
+        assert [s["timestamp"] for s in tr.query_by_trace_id("s", "spans", "t1")] == list(range(1, 40, 4))
+        _cat, req = bydbql.parse_with_catalog(
+            "SELECT * FROM TRACE spans IN s WHERE d >= 38 LIMIT 10")
+        assert [d["timestamp"] for d in ql_exec.execute_trace_ql(tr, req).data_points] == [38, 39]
+        tr.close()
+        pe = PropertyEngine(reg, Path(root) / "data")
+        p1 = pe.apply(Property("p", "node", "n1", {"role": "data"}))
+        p2 = pe.apply(Property("p", "node", "n1", {"zone": "z"}))
+        assert p2.tags == {"role": "data", "zone": "z"} and p2.mod_revision > p1.mod_revision
+        assert [p.id for p in pe.query("p", "node", tag_filters={"zone": "z"})] == ["n1"]
+        pe.close()
     bad = sorted(k for k in sys.modules
                  if k == "jax" or k.startswith(("jax.", "banyandb_tpu.")))
     assert not bad, bad
