@@ -1,0 +1,1621 @@
+"""Liaison role: user gateway + distributed query planner
+(banyand/liaison + banyand/dquery analog).
+
+- Writes: points route by (measure entity -> seriesID -> shard), fan out
+  to the shard's replica set (pkg/node/round_robin.go contract).
+- Aggregate queries: per-shard primary-alive nodes; each node maps its
+  shard subset to Partials on device; liaison reduces
+  (measure_exec.combine_partials) and finalizes.  Percentile runs two
+  rounds so every node's histogram shares the global range.
+- Raw queries: scatter, merge rows, order + limit.
+- Health checking: per-call failover to the next replica, plus an
+  explicit probe() to refresh the alive set (pub.go:301,364 analog).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+import uuid
+from typing import Optional
+
+from banyandb_tpu_torch.api.model import Aggregation, QueryRequest, QueryResult, WriteRequest
+from banyandb_tpu_torch.api.schema import SchemaRegistry
+from banyandb_tpu_torch.cluster import serde
+from banyandb_tpu_torch.cluster.bus import Topic
+from banyandb_tpu_torch.cluster.node import NodeInfo
+from banyandb_tpu_torch.cluster.placement import PlacementMap, PlacementSelector
+from banyandb_tpu_torch.cluster.rpc import TransportError
+from banyandb_tpu_torch.obs.tracer import NOOP_TRACER, Tracer
+from banyandb_tpu_torch.query import measure_exec
+from banyandb_tpu_torch.utils import hashing
+from banyandb_tpu_torch.utils.envflag import env_float
+
+# RPC deadline tiers (the rpc-timeout contract, docs/linting.md): every
+# fabric call states the stall it tolerates.  Probes stay snappy so the
+# alive set converges; control-plane pushes are bounded so a dead peer
+# can't wedge schema rollout; data-plane queries get room for real
+# scans; bulk part sync moves whole files.
+_RPC_PROBE_S = 5.0
+_RPC_CONTROL_S = 10.0
+_RPC_WRITE_S = 15.0
+_RPC_QUERY_S = 30.0
+_RPC_SYNC_S = 120.0
+
+
+class _QueryGuard:
+    """Per-query deadline budget + degradation accumulator
+    (docs/robustness.md).
+
+    The WHOLE distributed query shares one budget: every scatter RPC's
+    timeout is clamped to the remaining budget and the envelope carries
+    ``deadline_ms`` (remaining at send) so data nodes refuse
+    already-expired work — one slow node eats its own slice of the
+    budget, never wedges the query past it.  Nodes whose data could not
+    be reached (dead, shedding, out of budget) accumulate in ``nodes``
+    and surface as the response's ``unavailable_nodes`` marker."""
+
+    __slots__ = ("budget_s", "t_end", "nodes")
+
+    def __init__(self, budget_s: float):
+        self.budget_s = budget_s
+        self.t_end = time.monotonic() + budget_s
+        self.nodes: dict[str, str] = {}  # node name -> reason
+
+    def remaining_s(self) -> float:
+        return self.t_end - time.monotonic()
+
+    def expired(self) -> bool:
+        return self.remaining_s() <= 0
+
+    def rpc_timeout(self) -> float:
+        return max(min(_RPC_QUERY_S, self.remaining_s()), 0.001)
+
+    def deadline_ms(self) -> float:
+        return self.remaining_s() * 1000.0
+
+    def mark(self, node_name: str, reason: str) -> None:
+        self.nodes.setdefault(node_name, reason)
+
+    @property
+    def degraded(self) -> bool:
+        return bool(self.nodes)
+
+
+def _sort_merged_rows(rows: list, req, *, default_desc: bool = True) -> None:
+    """Order scattered rows at the liaison merge: by tag value when the
+    query orders by an indexed tag (rows missing the tag always sort
+    last, regardless of direction), else by timestamp.
+
+    default_desc picks the no-order_by direction per catalog: streams
+    default newest-first, measures oldest-first (the reference's
+    limit/offset golden pins measure ASC — must match the engines so
+    cluster and standalone paginate identically)."""
+    if req.order_by_tag:
+        tag = req.order_by_tag
+
+        def key(d):
+            v = d.get("tags", {}).get(tag)
+            # type-ranked key: numerics before strings, never cross-compare
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                return (1, 0, str(v))
+            return (0, v, "")
+
+        rows.sort(key=key, reverse=(req.order_by_dir == "desc"))
+        # stable second pass: missing-tag rows to the tail either way
+        rows.sort(key=lambda d: d.get("tags", {}).get(tag, None) is None)
+    else:
+        if req.order_by_ts:
+            desc = req.order_by_ts == "desc"
+        else:
+            desc = default_desc
+        rows.sort(key=lambda d: d["timestamp"], reverse=desc)
+
+
+class Liaison:
+    def __init__(
+        self,
+        registry: SchemaRegistry,
+        transport,
+        nodes: list[NodeInfo] = (),
+        *,
+        replicas: int = 0,
+        discovery=None,
+        handoff_root: Optional[str] = None,
+        query_budget_s: Optional[float] = None,
+        placement_store: "Optional[str]" = None,
+    ):
+        self.registry = registry
+        self.transport = transport
+        self.replicas = replicas
+        self.discovery = discovery
+        # one deadline budget per distributed query (every scatter leg
+        # shares it; BYDB_QUERY_DEADLINE_S overrides the _RPC_QUERY_S
+        # default)
+        self.query_budget_s = (
+            query_budget_s
+            if query_budget_s is not None
+            else env_float("BYDB_QUERY_DEADLINE_S", _RPC_QUERY_S)
+        )
+        if discovery is not None:
+            nodes = discovery.nodes()
+        # Explicit epoch-versioned placement (cluster/placement.py,
+        # docs/robustness.md "Elastic cluster").  The initial map has
+        # no explicit chains, so routing equals the historical
+        # round-robin byte-for-byte; a persisted store restores the
+        # last cutover's map (epochs survive liaison restarts).
+        # `placement`/`selector`/`_dual` follow the same concurrency
+        # contract as `alive`: immutable snapshots REBOUND under
+        # _placement_lock, read lock-free everywhere else.
+        self._placement_lock = threading.Lock()
+        from pathlib import Path as _Path
+
+        self._placement_store = (
+            _Path(placement_store) if placement_store else None
+        )
+        stored = (
+            PlacementMap.load(self._placement_store)
+            if self._placement_store is not None
+            else None
+        )
+        self.placement = stored or PlacementMap.initial(
+            [n.name for n in nodes], replicas
+        )
+        self.selector = PlacementSelector(list(nodes), self.placement)
+        # dual-route window (rebalance catch-up): shard -> extra owner
+        # names that receive every write ALONGSIDE the current chain
+        self._dual: dict[int, tuple[str, ...]] = {}
+        # membership change observed by refresh_nodes() but NOT applied
+        # to the chains (an explicit rebalance plan owns data movement)
+        self.pending_topology: Optional[tuple[str, ...]] = None
+        from banyandb_tpu_torch.obs.metrics import global_meter
+
+        global_meter().gauge_set(
+            "placement_epoch", float(self.placement.epoch)
+        )
+        # `alive` is read lock-free all over the query/write planes and
+        # written from the probe thread AND every RPC worker that sees a
+        # dead peer: it is therefore treated as an immutable snapshot —
+        # writers REBIND a fresh set under _alive_lock (never mutate in
+        # place), readers see either the old or the new reference
+        self._alive_lock = threading.Lock()
+        self.alive: set[str] = {n.name for n in nodes}
+        # newest schema content pushed per (kind, key) — the barrier's
+        # trusted "node is ahead" witness (see sync_schema)
+        self._schema_latest: dict[tuple[str, str], str] = {}
+        # streamagg registrations this liaison has broadcast, keyed by
+        # signature identity: nodes that were down at register time (or
+        # that join later) receive them when probe() sees them alive —
+        # a restarting node's own persisted registry only covers
+        # signatures it had already received
+        self._streamagg_regs: dict[tuple, dict] = {}
+        self._streamagg_sent: dict[str, set] = {}  # node -> sig keys
+        self._streamagg_lock = threading.Lock()  # guards the two above
+        self.handoff = None
+        if handoff_root:
+            from banyandb_tpu_torch.cluster.handoff import HandoffController
+
+            self.handoff = HandoffController(handoff_root)
+
+    def refresh_nodes(self) -> bool:
+        """Re-read discovery on membership change — WITHOUT re-placing
+        shards (discovery/{file,dns} polling loop analog).
+
+        The addr book updates so joined nodes are reachable (schema
+        sync, rebalance part shipping) and departed nodes stop being
+        dialable, but the placement chains keep serving at the current
+        epoch: silently rebuilding the shard->node mapping on a node-set
+        change would reroute reads onto nodes that hold NO data (the
+        pre-placement hazard this method used to have).  A membership
+        change only PROPOSES — ``pending_topology`` records the new node
+        set; an explicit rebalance plan+apply (cluster/rebalance.py)
+        moves the parts and cuts the epoch over."""
+        if self.discovery is None or not self.discovery.refresh():
+            return False
+        nodes = self.discovery.nodes()
+        with self._placement_lock:
+            self.selector = PlacementSelector(nodes, self.placement)
+            names = tuple(sorted(n.name for n in nodes))
+            self.pending_topology = (
+                names if names != self.placement.nodes else None
+            )
+        self.probe()
+        return True
+
+    # -- placement lifecycle (cluster/rebalance.py drives these) -------------
+    def begin_dual_route(self, adds: "dict[int, tuple[str, ...]]") -> None:
+        """Open the rebalance catch-up window: writes for each listed
+        shard fan to the current chain AND the named new owners, so no
+        row acked during a move exists only on the losing side."""
+        with self._placement_lock:
+            self._dual = {int(s): tuple(a) for s, a in adds.items() if a}
+
+    def end_dual_route(self) -> None:
+        with self._placement_lock:
+            self._dual = {}
+
+    def dual_route_shards(self) -> list[int]:
+        return list(self._dual)
+
+    def _write_replica_set(self, shard: int) -> list[NodeInfo]:
+        """Write-plane replica set: the chain plus any dual-route adds
+        for this shard (reads keep using the chain alone until
+        cutover — old owners hold everything mid-move)."""
+        out = self.selector.replica_set(shard)
+        extra = self._dual.get(shard, ())
+        if extra:
+            have = {n.name for n in out}
+            for nm in extra:
+                node = self.selector.node_by_name(nm)
+                if node is not None and node.name not in have:
+                    out.append(node)
+                    have.add(nm)
+        return out
+
+    def cutover(self, plan) -> int:
+        """Atomically switch to the plan's placement map: epoch bump,
+        persisted store, dual-route window closed.  The caller
+        (Rebalancer.apply) broadcasts the new epoch AFTER this returns
+        — RPC fan-out never happens under the placement lock."""
+        with self._placement_lock:
+            if plan.base_epoch != self.placement.epoch:
+                raise RuntimeError(
+                    f"cutover refused: plan base epoch {plan.base_epoch} "
+                    f"!= current {self.placement.epoch}"
+                )
+            new = plan.placement()
+            self.placement = new
+            self.selector = PlacementSelector(list(self.selector.nodes), new)
+            self._dual = {}
+            names = tuple(sorted(n.name for n in self.selector.nodes))
+            self.pending_topology = names if names != new.nodes else None
+            if self._placement_store is not None:
+                new.save(self._placement_store)
+        from banyandb_tpu_torch.obs.metrics import global_meter
+
+        global_meter().gauge_set("placement_epoch", float(new.epoch))
+        return new.epoch
+
+    def broadcast_placement(self) -> dict[str, int]:
+        """Push the current epoch to every alive node (the cutover
+        fence).  Nodes missed here still learn the epoch from the next
+        fenced envelope — the broadcast only tightens the window."""
+        p = self.placement
+        acks: dict[str, int] = {}
+        for n in self.selector.nodes:
+            if n.name not in self.alive:
+                continue
+            try:
+                r = self.transport.call(
+                    n.addr, "placement",
+                    {"op": "set", "epoch": p.epoch},
+                    timeout=_RPC_CONTROL_S,
+                )
+                acks[n.name] = int(r.get("epoch", 0))
+            except TransportError:
+                continue
+        return acks
+
+    def _reload_placement(self) -> bool:
+        """A stale-epoch rejection means THIS liaison routes on a
+        superseded map (another liaison cut over).  Re-read the shared
+        placement store; -> True when a fresher map was adopted."""
+        if self._placement_store is None:
+            return False
+        fresh = PlacementMap.load(self._placement_store)
+        if fresh is None:
+            return False
+        with self._placement_lock:
+            if fresh.epoch <= self.placement.epoch:
+                return False
+            self.placement = fresh
+            self.selector = PlacementSelector(
+                list(self.selector.nodes), fresh
+            )
+            self._dual = {}
+        from banyandb_tpu_torch.obs.metrics import global_meter
+
+        global_meter().gauge_set("placement_epoch", float(fresh.epoch))
+        return True
+
+    def _stamp_epoch(self, env: dict) -> dict:
+        """Fenced envelope: every write/scatter RPC carries the sender's
+        placement epoch so data nodes can reject superseded writers."""
+        return dict(env, placement_epoch=self.placement.epoch)
+
+    @staticmethod
+    def _stamp_tenant(env: dict, group: str) -> dict:
+        """Tenant identity rides every write/scatter envelope
+        (docs/robustness.md "Multi-tenant QoS") so data nodes partition
+        their serving caches without re-deriving from the group."""
+        from banyandb_tpu_torch.qos.tenancy import tenant_of_group
+
+        env["tenant"] = tenant_of_group(group)
+        return env
+
+    def _mark_dead(self, name: str) -> None:
+        """Drop a peer from the alive snapshot (rebind, never mutate:
+        concurrent lock-free readers hold the old reference)."""
+        with self._alive_lock:
+            self.alive = self.alive - {name}
+
+    # -- health -------------------------------------------------------------
+    def probe(self) -> set[str]:
+        alive = set()
+        for n in self.selector.nodes:
+            try:
+                r = self.transport.call(
+                    n.addr, Topic.HEALTH.value, {}, timeout=_RPC_PROBE_S
+                )
+                if r.get("status") == "ok":
+                    alive.add(n.name)
+            except TransportError:
+                pass
+        with self._alive_lock:
+            self.alive = alive
+        # streamagg catch-up: any alive node missing a broadcast
+        # registration gets it now (idempotent server-side); keyed on
+        # sent-state, not on the down->up transition, so a failed send
+        # retries at the next probe
+        for node in self.selector.nodes:
+            if node.name not in alive:
+                continue
+            with self._streamagg_lock:
+                todo = [
+                    (key, env)
+                    for key, env in self._streamagg_regs.items()
+                    if key not in self._streamagg_sent.get(node.name, ())
+                ]
+            for key, env in todo:  # RPCs OUTSIDE the lock
+                try:
+                    self.transport.call(
+                        node.addr, "streamagg", env, timeout=_RPC_SYNC_S
+                    )
+                except TransportError:
+                    continue  # node flapped: retry at the next probe
+                with self._streamagg_lock:
+                    self._streamagg_sent.setdefault(
+                        node.name, set()
+                    ).add(key)
+        # Hinted-handoff replay (handoff_controller.go:82): drain the spool
+        # of EVERY alive node with pending entries — keyed on pending, not
+        # on the down->up transition, so a partially failed replay retries
+        # at the next probe instead of stranding the spool.
+        if self.handoff is not None:
+            for node in self.selector.nodes:
+                if node.name in alive and self.handoff.pending(node.name):
+                    self.handoff.replay(
+                        node.name,
+                        # spooled envelopes include write fan-out from
+                        # the _replicate failure path: give replay the
+                        # write budget, or a heavy spooled write that
+                        # would succeed live strands the whole spool
+                        # (replay stops at the first failure).  The
+                        # epoch is re-stamped at REPLAY time: a spooled
+                        # repair copy from before a rebalance cutover
+                        # must not wedge the spool on the stale-epoch
+                        # fence (the delivery is an idempotent repair,
+                        # not a new acked write)
+                        lambda topic, env, addr=node.addr: self.transport.call(
+                            addr, topic, self._stamp_epoch(env),
+                            timeout=_RPC_WRITE_S,
+                        ),
+                    )
+        return alive
+
+    # -- schema push + barrier ---------------------------------------------
+    def sync_schema(self, kind: str, obj) -> dict[str, dict]:
+        """Push one schema object to all nodes; down nodes get the sync
+        spooled through hinted handoff (they catch up at recovery).
+
+        -> {node: ack} where ack carries the node's LOCAL revision AND
+        the object's content hash + identity.  Revisions are per-node
+        counters (no shared etcd sequence), so a node that restarted
+        with an older registry can report a coincidentally-equal number
+        — the barrier therefore verifies CONTENT, not counters.
+        """
+        from banyandb_tpu_torch.api.schema import SchemaRegistry, _to_jsonable
+
+        env = {"kind": kind, "item": _to_jsonable(obj)}
+        want_hash = SchemaRegistry.object_hash(obj)
+        key = self.registry._key(obj)
+        # newest content THIS liaison pushed per object: the barrier's
+        # only trusted "node is ahead" witness (node-local revision
+        # counters can be bumped by stale handoff replays)
+        self._schema_latest[(kind, key)] = want_hash
+        acks: dict[str, dict] = {}
+        for n in self.selector.nodes:
+            if n.name not in self.alive:
+                if self.handoff is not None:
+                    self.handoff.spool(n.name, Topic.SCHEMA_SYNC.value, env)
+                continue
+            try:
+                r = self.transport.call(
+                    n.addr, Topic.SCHEMA_SYNC.value, env,
+                    timeout=_RPC_CONTROL_S,
+                )
+                acks[n.name] = {
+                    "revision": r.get("revision", 0),
+                    "obj_rev": r.get("obj_rev", 0),
+                    "hash": want_hash,
+                    "kind": kind,
+                    "key": key,
+                }
+            except TransportError:
+                self._mark_dead(n.name)
+                if self.handoff is not None:
+                    self.handoff.spool(n.name, Topic.SCHEMA_SYNC.value, env)
+                else:
+                    raise
+        return acks
+
+    def schema_barrier(self, acks: dict[str, dict], timeout_s: float = 10.0) -> bool:
+        """Block until every acked node serves the synced object with the
+        EXPECTED CONTENT HASH (schema/v1/barrier.proto +
+        barrier_cluster.go analog).  A node that stops answering counts
+        as BEHIND — unreachable is exactly the window the barrier exists
+        to close.  Returns False on timeout."""
+        import time as _time
+
+        deadline = _time.monotonic() + timeout_s
+        addr_of = {n.name: n.addr for n in self.selector.nodes}
+        while True:
+            behind = []
+            for name, ack in acks.items():
+                try:
+                    r = self.transport.call(
+                        addr_of[name],
+                        Topic.SCHEMA_GET.value,
+                        {"kind": ack["kind"], "key": ack["key"]},
+                        timeout=5,
+                    )
+                    # Passed when the node serves the acked content, or
+                    # the NEWEST content this liaison has pushed for the
+                    # key (a later sync superseded this ack — the node is
+                    # ahead).  Node-local revision counters are never
+                    # trusted: a stale handoff replay can bump them past
+                    # the ack while serving older content.
+                    latest = self._schema_latest.get(
+                        (ack["kind"], ack["key"])
+                    )
+                    got = r.get("hash")
+                    fresh = got == ack["hash"] or (
+                        latest is not None and got == latest
+                    )
+                    if not fresh:
+                        behind.append(name)
+                except TransportError:
+                    behind.append(name)
+            if not behind:
+                return True
+            if _time.monotonic() >= deadline:
+                return False
+            _time.sleep(0.05)
+
+    def forget_streamagg_sent(self, node_name: str) -> None:
+        """Drop the sent-state for one node so the next probe() re-sends
+        every remembered streamagg registration.  Callers that restart a
+        node IN PLACE (the worker pool's crash-restart path) use this:
+        the fresh process re-registers from its persisted registry, but
+        registrations broadcast while it was down exist only here."""
+        with self._streamagg_lock:
+            self._streamagg_sent.pop(node_name, None)
+
+    # -- streaming aggregation control plane (query/streamagg.py) -----------
+    def register_streamagg(
+        self,
+        group: str,
+        measure: str,
+        key_tags,
+        fields,
+        window_millis: Optional[int] = None,
+        max_windows: Optional[int] = None,
+        origin: str = "manual",
+    ) -> dict[str, dict]:
+        """Broadcast one materialized dashboard signature to every alive
+        data node (windows are node-local per shard; each node backfills
+        its own parts, so the scatter's per-shard folds merge like scan
+        partials).  -> {node: ack}.  Down nodes re-register themselves
+        at restart from their persisted streamagg registry."""
+        env = {
+            "op": "register",
+            "group": group,
+            "measure": measure,
+            "key_tags": list(key_tags),
+            "fields": list(fields),
+            "window_millis": window_millis,
+            "max_windows": max_windows,
+            "origin": origin,
+        }
+        key = (
+            group, measure, tuple(sorted(key_tags)),
+            tuple(sorted(fields)), window_millis,
+        )
+        # remembered for probe()'s catch-up: nodes down right now (and
+        # nodes joining later) receive the registration when they are
+        # next seen alive — their own persisted registry only covers
+        # signatures they had already received
+        with self._streamagg_lock:
+            self._streamagg_regs[key] = env
+        acks: dict[str, dict] = {}
+        for n in self.selector.nodes:
+            if n.name not in self.alive:
+                continue
+            # sync-tier timeout: registration backfills from the node's
+            # existing parts, which can be a real scan
+            acks[n.name] = self.transport.call(
+                n.addr, "streamagg", env, timeout=_RPC_SYNC_S
+            )
+            with self._streamagg_lock:
+                self._streamagg_sent.setdefault(n.name, set()).add(key)
+        return acks
+
+    def unregister_streamagg(
+        self,
+        group: str,
+        measure: str,
+        key_tags,
+        fields,
+        window_millis: Optional[int] = None,
+    ) -> dict[str, dict]:
+        """Broadcast a signature drop (the autoreg eviction path) and
+        FORGET the remembered registration so probe() stops re-sending
+        it to rejoining nodes.  -> {node: ack}."""
+        env = {
+            "op": "unregister",
+            "group": group,
+            "measure": measure,
+            "key_tags": list(key_tags),
+            "fields": list(fields),
+            "window_millis": window_millis,
+        }
+        with self._streamagg_lock:
+            drop = [
+                key
+                for key in self._streamagg_regs
+                if key[0] == group
+                and key[1] == measure
+                and key[2] == tuple(sorted(key_tags))
+                and key[3] == tuple(sorted(fields))
+                and (window_millis is None or key[4] == window_millis)
+            ]
+            for key in drop:
+                self._streamagg_regs.pop(key, None)
+                for sent in self._streamagg_sent.values():
+                    sent.discard(key)
+        acks: dict[str, dict] = {}
+        for n in self.selector.nodes:
+            if n.name not in self.alive:
+                continue
+            acks[n.name] = self.transport.call(
+                n.addr, "streamagg", env, timeout=_RPC_SYNC_S
+            )
+        return acks
+
+    # -- liaison write queue (wqueue.go:75 analog) --------------------------
+    def enable_write_queue(self, spool_root, **kw):
+        """Switch measure writes to the batching plane: buffered parts per
+        (group, shard), sealed + shipped over streaming chunked sync.
+
+        The write queue (``cluster/wqueue.py``), the streaming chunked
+        sync (``cluster/chunked_sync.py``) and the gRPC transport it
+        ships over come with the serving slice of the port; until then
+        this raises instead of silently keeping the synchronous path."""
+        raise NotImplementedError(
+            "the liaison write queue needs cluster.wqueue, "
+            "cluster.chunked_sync and the gRPC transport, which come with "
+            "the serving slice of banyandb_tpu_torch"
+        )
+
+    def write_measure_queued(self, req: WriteRequest) -> int:
+        """Buffered write path: rows land in the liaison write queue and
+        reach data nodes as sealed parts on the next seal/ship tick."""
+        if getattr(self, "wqueue", None) is None:
+            raise RuntimeError("write queue not enabled (enable_write_queue)")
+        return self.wqueue.append(req)
+
+    def write_stream_queued(self, group: str, name: str, elements) -> int:
+        """Stream twin of write_measure_queued: elements buffer into
+        sealed payload parts shipped over chunked sync."""
+        if getattr(self, "wqueue", None) is None:
+            raise RuntimeError("write queue not enabled (enable_write_queue)")
+        return self.wqueue.append_stream(group, name, elements)
+
+    # -- writes -------------------------------------------------------------
+    def write_measure(self, req: WriteRequest) -> int:
+        """-> number of distinct points accepted (each counted once,
+        regardless of replica fan-out).
+
+        Durability contract: a point is accepted only if at least ONE
+        replica durably received it over the wire.  Known-down replicas
+        get their copies spooled through hinted handoff (so a recovered
+        node catches up on everything missed, not just in-flight
+        failures); the spool is a bounded cache, never the only copy —
+        zero reachable replicas for a shard raises."""
+        m = self.registry.get_measure(req.group, req.name)
+        shard_num = self.registry.get_group(req.group).resource_opts.shard_num
+
+        def shard_of(p):
+            entity = [req.name.encode()] + [
+                hashing.entity_bytes(p.tags[t]) for t in m.entity.tag_names
+            ]
+            return hashing.shard_id(hashing.series_id(entity), shard_num)
+
+        by_node, spool_points, addr_of = self._route_items(req.points, shard_of)
+        accepted = len(req.points)
+
+        def env_for(points):
+            return self._stamp_tenant({
+                "request": serde.write_request_to_json(
+                    WriteRequest(req.group, req.name, tuple(points))
+                )
+            }, req.group)
+
+        self._deliver_writes(
+            Topic.MEASURE_WRITE.value,
+            {n: env_for(p) for n, p in by_node.items()},
+            addr_of,
+            {n: env_for(p) for n, p in spool_points.items()},
+        )
+        return accepted
+
+    def _deliver_writes(
+        self,
+        topic: str,
+        by_node_env: dict[str, dict],
+        addr_of: dict[str, str],
+        spool_env: dict[str, dict],
+    ) -> None:
+        """Shared write-plane delivery contract (all three models):
+        - in-flight TransportError marks the node dead + spools (ordering
+          preserved via the handoff spool);
+        - a node SHEDDING LOAD (structured kind="shed" on the transport
+          error: DiskFull/ServerBusy) is NOT dead: it stays alive, its
+          copy is spooled so handoff replay repairs the gap once the
+          node drains (replay keeps failed entries, so a still-full disk
+          just retries later), and the retryable rejection propagates to
+          the caller when no replica accepted;
+        - zero successful wire deliveries -> raise (a spool alone is a
+          bounded cache, not durable storage);
+        - ANY stale-epoch rejection (kind="stale_epoch") FAILS the whole
+          write, even when another replica already accepted it: the
+          targets were all computed from a superseded placement map, so
+          an ack here could cover a row no post-cutover read would ever
+          route to.  The copy is NOT spooled (replaying a fenced write
+          is exactly the double-apply the fence exists to stop), the
+          placement store is re-read, and the retryable rejection
+          propagates — the caller's retry re-routes on the fresh map,
+          and the stray accepted copy collapses in version dedup (or
+          sits unrouted on a node the new map no longer reads);
+        - known-down replica copies (spool_env) land in the spool so a
+          recovered node replays the whole outage window."""
+        delivered_to: set[str] = set()
+        failed: dict[str, dict] = {}
+        rejected_names: set[str] = set()  # shed/stale: healthy nodes
+        first_stale: Optional[TransportError] = None
+        first_rejection: Optional[TransportError] = None
+        for name, env in by_node_env.items():
+            try:
+                self.transport.call(
+                    addr_of[name], topic, self._stamp_epoch(env),
+                    timeout=_RPC_WRITE_S,
+                )
+                delivered_to.add(name)
+            except TransportError as e:
+                kind = getattr(e, "kind", "error")
+                if kind == "stale_epoch":
+                    rejected_names.add(name)
+                    first_stale = first_stale or e
+                    first_rejection = first_rejection or e
+                    continue  # never spooled: the copy is fenced
+                failed[name] = env  # spooled below (shed AND dead alike)
+                if kind in ("shed", "deadline"):
+                    # a shedding OR deadline-rejecting node is healthy
+                    # (rpc.py contract): its budget ran out, the node
+                    # did not.  Spool the copy and surface the retryable
+                    # rejection — marking it dead would evict a healthy
+                    # replica over the sender's own clock.
+                    rejected_names.add(name)
+                    first_rejection = first_rejection or e
+                else:
+                    self._mark_dead(name)
+        if first_stale is not None:
+            # catch up to the cutover that fenced us, then fail the
+            # write retryably EVEN IF a (equally stale-routed) replica
+            # accepted it — only a retry on the fresh map reaches the
+            # owners post-cutover reads actually route to
+            self._reload_placement()
+            raise first_stale
+        if not delivered_to and rejected_names and set(failed) <= rejected_names:
+            # every replica rejected retryably (shed load / stale
+            # epoch): surface the structured rejection itself rather
+            # than a generic unreachable error
+            raise first_rejection
+        if not delivered_to and failed:
+            raise TransportError(
+                f"write reached no replica (failed: {sorted(failed)})"
+            )
+        if self.handoff is not None:
+            for name, env in {**failed, **spool_env}.items():
+                try:
+                    self.handoff.spool(name, topic, env)
+                except OSError:
+                    # the spool is a bounded repair cache, never the ack
+                    # copy: a full/torn spool disk must not fail a write
+                    # that already reached a replica
+                    import logging
+
+                    logging.getLogger("banyandb.liaison").exception(
+                        "handoff spool failed for %s (entry dropped)", name
+                    )
+        elif failed:
+            raise TransportError(
+                f"replica write failed with no handoff: {sorted(failed)}"
+            )
+
+    # -- queries ------------------------------------------------------------
+    def _shard_assignment(
+        self,
+        group: str,
+        stages: tuple[str, ...] = (),
+        guard: Optional[_QueryGuard] = None,
+    ) -> dict[NodeInfo, list[int]]:
+        """Per-shard node assignment, stage-aware (ResolveStage analog).
+
+        `guard` (query paths only): a shard whose whole replica set is
+        down DEGRADES the query — the shard is skipped and its down
+        replicas land in guard.nodes — instead of failing it outright.
+        Zero assignable shards still raise: an empty answer that looks
+        merely "degraded" would hide a total outage.
+
+        Untiered groups (no stages configured or requested): each shard
+        goes to its replica-chain primary — one node per shard, so
+        replicated data is never read twice.
+
+        Tiered groups: every requested stage (default: all the group's
+        configured stages) contributes its own full shard assignment over
+        that stage's nodes — tier migration MOVES rows between tiers, so
+        a row lives in exactly one tier and the cross-tier union stays
+        duplicate-free.  Within a stage, shard -> replica-chain primary
+        when the chain reaches the stage; otherwise a deterministic
+        spread over the stage's nodes (migrated shards need not follow
+        the write-time chain)."""
+        opts = self.registry.get_group(group).resource_opts
+        shard_num = opts.shard_num
+        stage_list = tuple(stages) or tuple(opts.stages)
+
+        def stage_nodes(stage: Optional[str]) -> set[str]:
+            return {
+                n.name
+                for n in self.selector.nodes
+                if n.name in self.alive
+                and (stage is None or n.serves_stage(stage))
+            }
+
+        def assign_into(
+            assignment, eligible: set[str], label: str, fallback: bool
+        ) -> None:
+            ordered = sorted(eligible)
+            for shard in range(shard_num):
+                try:
+                    node = self.selector.primary(shard, eligible)
+                except RuntimeError:
+                    # off-chain spread is only sound for tiered stages,
+                    # where migration places shards off the write-time
+                    # chain; untiered data lives on chain nodes only, so
+                    # a dead chain must error — or, with a degradation
+                    # guard, skip the shard and name its down replicas
+                    if not fallback or not ordered:
+                        if guard is not None:
+                            for rep in self.selector.replica_set(shard):
+                                if rep.name not in eligible:
+                                    guard.mark(rep.name, "unreachable")
+                            continue
+                        raise TransportError(
+                            f"shard {shard} has no alive replica for {label}"
+                        ) from None
+                    node = next(
+                        n for n in self.selector.nodes
+                        if n.name == ordered[shard % len(ordered)]
+                    )
+                entry = assignment.setdefault(node.name, (node, []))
+                if shard not in entry[1]:
+                    entry[1].append(shard)
+
+        assignment: dict[str, tuple[NodeInfo, list[int]]] = {}
+        if not stage_list:
+            assign_into(assignment, stage_nodes(None), "any stage", fallback=False)
+        else:
+            missing = []
+            for stage in stage_list:
+                eligible = stage_nodes(stage)
+                if not eligible:
+                    missing.append(stage)
+                    continue
+                assign_into(assignment, eligible, f"stage {stage!r}", fallback=True)
+            if missing and (stages or not assignment):
+                # explicitly requested stages must not silently vanish;
+                # group-configured stages may have no nodes yet as long
+                # as SOME tier answered
+                raise TransportError(
+                    f"no alive node serves stages {missing}"
+                )
+        if guard is not None and guard.nodes and not assignment:
+            raise TransportError(
+                "no shard has an alive replica "
+                f"(down: {sorted(guard.nodes)})"
+            )
+        return {node: shards for node, shards in assignment.values()}
+
+    # -- degraded-tolerant scatter (docs/robustness.md) ---------------------
+    def _scatter_one(
+        self, topic, node, shards, env_of, guard, t, on_reply, retry,
+        timeout_cap_s: float | None = None, attempt: int = 0,
+    ) -> None:
+        """One scatter leg under the query guard: deadline-clamped
+        timeout, deadline_ms stamped on the envelope, structured failure
+        handling.  `retry` (list or None) collects hard-failed legs for
+        the caller's failover rounds; shed/deadline rejections mark the
+        node unavailable without eviction (it is healthy).
+        `timeout_cap_s` further clamps the RPC timeout — the last-chance
+        same-node retry uses it so a genuinely dead node costs seconds,
+        not the whole remaining budget.  `attempt` is the failover round
+        index, tagged on the span so a trace shows exactly which
+        replicas a leg walked."""
+        if guard.expired():
+            guard.mark(node.name, "deadline")
+            return
+        # remaining budget (deadline_ms) AND the absolute wall deadline:
+        # the absolute form still fires after the request sat in the
+        # receiver's executor queue (same-DC clock skew caveat applies)
+        env = self._stamp_epoch(dict(
+            env_of(shards),
+            deadline_ms=guard.deadline_ms(),
+            deadline_unix_ms=time.time() * 1000.0 + guard.deadline_ms(),
+        ))
+        if t is not NOOP_TRACER:
+            # the caller holds a REAL tracer (serving surfaces always
+            # do): ask the node for its span subtree even when the user
+            # request is untraced — the graft feeds the slow-query
+            # recorder and serve-path classification, and rides only
+            # the bus reply, never the user-facing result
+            env["want_subtree"] = True
+        with t.span(f"scatter:{node.name}") as sp:
+            sp.tag("shards", list(shards))
+            if attempt:
+                sp.tag("attempt", attempt)
+            timeout = guard.rpc_timeout()
+            if timeout_cap_s is not None:
+                timeout = min(timeout, timeout_cap_s)
+            try:
+                r = self.transport.call(
+                    node.addr, topic, env, timeout=timeout
+                )
+            except TransportError as e:
+                sp.error(str(e))
+                kind = getattr(e, "kind", "error")
+                if kind in ("shed", "deadline"):
+                    guard.mark(node.name, kind)
+                    return
+                if kind == "stale_epoch":
+                    # the node fenced this leg: WE route on a superseded
+                    # placement map.  Adopt the fresh map and hand the
+                    # shards to the failover walk, which re-places them
+                    # on the new map's owners — the fencing node is
+                    # healthy and must never be evicted for our
+                    # staleness.
+                    self._reload_placement()
+                    if retry is not None:
+                        retry.append((node, list(shards)))
+                    else:
+                        guard.mark(node.name, kind)
+                    return
+                self._mark_dead(node.name)
+                if retry is not None:
+                    retry.append((node, list(shards)))
+                else:
+                    guard.mark(node.name, "unreachable")
+                return
+            # the node ran its own tracer; graft its subtree so the
+            # response carries ONE merged span tree
+            sp.attach(r.get("trace"))
+            on_reply(node, shards, r, sp)
+
+    def _scatter(
+        self, topic, assignment, env_of, guard, tracer, on_reply,
+        *, failover: bool = True,
+    ) -> None:
+        """Scatter with EXHAUSTIVE failover: a leg that hard-fails gets
+        its shards re-placed on the next surviving replica, round after
+        round, until every replica in each shard's chain has been tried
+        or the query's deadline budget runs out — never just one round.
+        Each shard's tried-and-failed set grows monotonically, so the
+        walk terminates; per-attempt span tags (`attempt`) record the
+        path.  A shard whose whole chain failed gets one LAST-CHANCE
+        capped retry against its original node (a wedged-channel dial
+        heals on the fresh dial `call()`'s eviction forces) and then
+        degrades the response instead of failing it.
+
+        `failover=False` for TIERED groups: the failover walk follows
+        the untiered replica chain, which for a failed warm-tier leg
+        could re-place shards onto a hot node that already answered —
+        double-counting rows.  Tiered legs degrade directly instead."""
+        t = tracer if tracer is not None else NOOP_TRACER
+        retry: list[tuple[NodeInfo, list[int]]] = (
+            [] if failover else None  # type: ignore[assignment]
+        )
+        for node, shards in assignment.items():
+            self._scatter_one(
+                topic, node, shards, env_of, guard, t, on_reply, retry
+            )
+        if not retry:
+            return
+        from banyandb_tpu_torch.obs.metrics import global_meter
+
+        meter = global_meter()
+        tried: dict[int, set[str]] = {}  # shard -> failed node names
+        origin: dict[int, NodeInfo] = {}  # shard -> first-assigned node
+        for node, shards in retry:
+            for s in shards:
+                origin.setdefault(s, node)
+        attempt = 0
+        pending = retry
+        while pending:
+            attempt += 1
+            meter.counter_add("failover_attempts", 1.0)
+            for node, shards in pending:
+                for s in shards:
+                    tried.setdefault(s, set()).add(node.name)
+            placed: dict[str, tuple[NodeInfo, list[int]]] = {}
+            exhausted: list[int] = []
+            for node, shards in pending:
+                for s in shards:
+                    # bdlint: disable=retry-backoff -- the failover walk
+                    # dials a DIFFERENT replica each round (the tried
+                    # set grows monotonically, so it terminates);
+                    # sleeping between rounds would only burn the
+                    # query's deadline budget, not protect any endpoint
+                    try:
+                        alt = self.selector.primary(
+                            s, self.alive - tried[s]
+                        )
+                    except RuntimeError:
+                        exhausted.append(s)
+                        continue
+                    placed.setdefault(alt.name, (alt, []))[1].append(s)
+            if guard.expired():
+                # out of budget: every un-replaced shard degrades with
+                # its last failed node named
+                for node, shards in pending:
+                    guard.mark(node.name, "unreachable")
+                return
+            next_retry: list[tuple[NodeInfo, list[int]]] = []
+            for alt, alt_shards in placed.values():
+                # the replacement leg may itself fail: it joins the
+                # next round with this node added to the tried set
+                self._scatter_one(
+                    topic, alt, alt_shards, env_of, guard, t, on_reply,
+                    next_retry, attempt=attempt,
+                )
+            if exhausted:
+                # whole chain walked: one last-chance retry against the
+                # ORIGINAL node on a capped timeout — a transient
+                # transport failure (the wedged-channel dial this
+                # kernel occasionally hands out; call() already evicted
+                # it) heals on a fresh dial, and a query leg is
+                # idempotent.  Terminal: a second failure degrades.
+                last_chance: dict[str, tuple[NodeInfo, list[int]]] = {}
+                for s in exhausted:
+                    node = origin[s]
+                    last_chance.setdefault(node.name, (node, []))[1].append(s)
+                for node, shards in last_chance.values():
+                    self._scatter_one(
+                        topic, node, shards, env_of, guard, t, on_reply,
+                        None, timeout_cap_s=3.0, attempt=attempt,
+                    )
+            pending = next_retry
+
+    def _failover_ok(self, group: str, stages: tuple[str, ...]) -> bool:
+        """Replica-chain failover is sound only when the query runs
+        untiered (no stages requested AND none configured)."""
+        try:
+            configured = self.registry.get_group(group).resource_opts.stages
+        except KeyError:
+            configured = ()
+        return not (tuple(stages) or tuple(configured))
+
+    def _finish_degraded(self, res, guard, tracer, engine: str) -> None:
+        """Stamp the explicit partial-result markers: wire/JSON fields,
+        span tags on the tracer's current span, and the
+        query_degraded_total counter."""
+        if guard is None or not guard.degraded:
+            return
+        res.degraded = True
+        res.unavailable_nodes = sorted(guard.nodes)
+        if tracer is not None:
+            sp = tracer.current()
+            if sp is not None:
+                sp.tag("degraded", True)
+                sp.tag("unavailable_nodes", sorted(guard.nodes))
+                sp.tag(
+                    "degraded_reasons",
+                    {n: r for n, r in sorted(guard.nodes.items())},
+                )
+        from banyandb_tpu_torch.obs.metrics import global_meter
+
+        global_meter().counter_add(
+            "query_degraded", 1.0, {"engine": engine}
+        )
+
+    def _scatter_partials(
+        self,
+        req: QueryRequest,
+        assignment: dict[NodeInfo, list[int]],
+        hist_range: Optional[tuple[float, float]],
+        tracer=None,
+        guard: Optional[_QueryGuard] = None,
+        failover: bool = True,
+    ) -> list[measure_exec.Partials]:
+        if guard is None:
+            guard = _QueryGuard(self.query_budget_s)
+        env_base = self._stamp_tenant({
+            "request": serde.query_request_to_json(req),
+            "hist_range": list(hist_range) if hist_range else None,
+        }, req.groups[0] if req.groups else "")
+        out = []
+
+        def env_of(shards):
+            return dict(env_base, shards=shards)
+
+        def on_reply(node, shards, r, sp):
+            out.append(serde.partials_from_json(r["partials"]))
+
+        self._scatter(
+            Topic.MEASURE_QUERY_PARTIAL.value,
+            assignment, env_of, guard, tracer, on_reply, failover=failover,
+        )
+        return out
+
+    def enable_mesh_fastpath(self, mesh, engines_by_node: dict) -> None:
+        """Switch supported aggregate queries onto the collective plane
+        (sum/amin/amax over the mesh's slots, parallel/mesh_query.py) when the
+        data-node engines share this process.  Unsupported query shapes
+        fall back to scatter partials per call
+        (pkg/query/vectorized/measure/adapter.go:43 analog)."""
+        from banyandb_tpu_torch.parallel.mesh_query import MeshExecutor
+
+        self.mesh_exec = MeshExecutor(mesh, engines_by_node)
+
+    def query_measure(self, req: QueryRequest, tracer=None) -> QueryResult:
+        """Distributed measure query.  `tracer`: span sink threaded from
+        the serving surface (LiaisonServer passes one for the slow-query
+        recorder); when None and req.trace is set the liaison owns a
+        local tracer.  Node subtrees merge under the scatter spans, so
+        `trace=true` responses carry ONE cluster-wide span tree."""
+        own_tracer = tracer is None and req.trace
+        if own_tracer:
+            tracer = Tracer("liaison:measure")
+        t = tracer if tracer is not None else NOOP_TRACER
+        group = req.groups[0]
+        m = self.registry.get_measure(group, req.name)
+        guard = _QueryGuard(self.query_budget_s)
+        failover = self._failover_ok(group, req.stages)
+        with t.span("plan") as ps:
+            assignment = self._shard_assignment(group, req.stages, guard=guard)
+            ps.tag("nodes", sorted(n.name for n in assignment))
+
+        def _attach_tree(res) -> QueryResult:
+            if own_tracer and req.trace:
+                res.trace = dict(res.trace or {})
+                res.trace["span_tree"] = tracer.finish()
+            return res
+
+        mesh_exec = getattr(self, "mesh_exec", None)
+        if mesh_exec is not None and (req.agg or req.group_by):
+            from banyandb_tpu_torch.parallel.mesh_query import MeshUnsupported
+
+            try:
+                with t.span("mesh_execute"):
+                    res = mesh_exec.execute(m, req, assignment)
+                self._attach_distributed_plan(
+                    res, m, req, assignment,
+                    combine="mesh sum/amin/amax collective (fast path)",
+                )
+                return _attach_tree(res)
+            except MeshUnsupported:
+                pass  # general scatter path below
+
+        if not (req.agg or req.group_by or req.top):
+            # Raw scatter-gather.  Nodes scan ONLY their assigned shards
+            # (replicated rows must not repeat) and return the first
+            # offset+limit rows each; global offset applies after merge.
+            off = req.offset or 0
+            limit = req.limit or 100
+            node_req = dataclasses.replace(req, offset=0, limit=off + limit)
+            rows: list[dict] = []
+            req_json = serde.query_request_to_json(node_req)
+
+            def env_of(shards):
+                return self._stamp_tenant(
+                    {"request": req_json, "shards": shards}, group
+                )
+
+            def on_reply(node, shards, r, sp):
+                sp.tag("rows", len(r["data_points"]))
+                rows.extend(r["data_points"])
+
+            self._scatter(
+                Topic.MEASURE_QUERY_RAW.value,
+                assignment, env_of, guard, tracer, on_reply,
+                failover=failover,
+            )
+            with t.span("merge") as ms:
+                _sort_merged_rows(rows, req, default_desc=False)  # ASC
+                ms.tag("rows", len(rows))
+            res = QueryResult()
+            res.data_points = rows[off : off + limit]
+            self._attach_distributed_plan(
+                res, m, req, assignment, combine="row merge (host ts sort)"
+            )
+            self._finish_degraded(res, guard, tracer, "measure")
+            return _attach_tree(res)
+
+        want_percentile = bool(req.agg and req.agg.function == "percentile")
+        hist_range = None
+        if want_percentile:
+            # Round A: field stats only (agg=min keeps want_minmax on).
+            stats_req = dataclasses.replace(
+                req, agg=Aggregation("min", req.agg.field_name), top=None
+            )
+            with t.span("range_round"):
+                # tracer threads through: the round's per-node scatter
+                # spans (and node subtrees) nest under range_round
+                stats = self._scatter_partials(
+                    stats_req, assignment, None, tracer=tracer, guard=guard,
+                    failover=failover,
+                )
+            lo, hi = float("inf"), float("-inf")
+            for p in stats:
+                st = p.field_stats.get(req.agg.field_name)
+                if st:
+                    lo, hi = min(lo, st[0]), max(hi, st[1])
+            if lo > hi:
+                lo, hi = 0.0, 1.0
+            hist_range = (lo, max(hi - lo, 1e-6))
+
+        partials = self._scatter_partials(
+            req, assignment, hist_range, tracer=tracer, guard=guard,
+            failover=failover,
+        )
+        if not partials:
+            # EVERY leg was lost (dead/shed/deadline): an aggregate built
+            # from nothing is not a degraded answer, it is a failure —
+            # raise with the per-node reasons instead of fabricating 0s
+            raise TransportError(
+                f"no node answered the scatter: {dict(guard.nodes)}",
+                kind=(
+                    "deadline"
+                    if set(guard.nodes.values()) == {"deadline"}
+                    else "error"
+                ),
+            )
+        res = measure_exec.finalize_partials(
+            m, req, partials,
+            span=t.current() if tracer is not None else None,
+        )
+        self._attach_distributed_plan(
+            res, m, req, assignment,
+            combine="host combine_partials (f64 Kahan)",
+            percentile="two-round range agreement" if want_percentile else "",
+        )
+        self._finish_degraded(res, guard, tracer, "measure")
+        return _attach_tree(res)
+
+    def _attach_distributed_plan(
+        self, res, m, req, assignment, *, combine: str, percentile: str = ""
+    ) -> None:
+        """Distributed plan tree rides the in-band trace, labeled with the
+        combine leg that ACTUALLY ran (measure_plan_distributed.go +
+        dquery/measure.go:104 analog)."""
+        if not req.trace:
+            return
+        from banyandb_tpu_torch.query import logical
+
+        plan = logical.analyze_measure_distributed(
+            m, req, [n.name for n in assignment]
+        )
+        plan.props["combine"] = combine
+        if percentile:
+            plan.props["percentile"] = percentile
+        res.trace = dict(res.trace or {})
+        res.trace["plan"] = plan.explain()
+
+
+    def _route_items(self, items, shard_of) -> tuple[dict, dict, dict]:
+        """items -> (by_node, spool_items, addr_of); raises when an item's
+        shard has no alive replica (same contract as write_measure)."""
+        by_node: dict[str, list] = {}
+        spool_items: dict[str, list] = {}
+        addr_of: dict[str, str] = {}
+        for item in items:
+            shard = shard_of(item)
+            # write plane: the chain plus any dual-route adds (a live
+            # rebalance fans writes to old AND new owners)
+            replicas = self._write_replica_set(shard)
+            targets = [n for n in replicas if n.name in self.alive]
+            if not targets:
+                raise TransportError(f"no alive replica for shard {shard}")
+            for node in targets:
+                by_node.setdefault(node.name, []).append(item)
+                addr_of[node.name] = node.addr
+            if self.handoff is not None:
+                for node in replicas:
+                    if node.name not in self.alive:
+                        spool_items.setdefault(node.name, []).append(item)
+        return by_node, spool_items, addr_of
+
+    # -- stream plane (liaison stream svc analog) ---------------------------
+    def write_stream(self, group: str, name: str, stream_schema: dict, elements: list[dict]) -> int:
+        """Route elements by entity-hash shard; schema piggybacks so data
+        nodes lazily learn the stream spec."""
+        shard_num = self.registry.get_group(group).resource_opts.shard_num
+        entity_tags = stream_schema["entity"]
+
+        def shard_of(e):
+            entity = [name.encode()] + [
+                hashing.entity_bytes(e["tags"][t]) for t in entity_tags
+            ]
+            return hashing.shard_id(hashing.series_id(entity), shard_num)
+
+        by_node, spool_items, addr_of = self._route_items(elements, shard_of)
+
+        def env_for(elems):
+            return self._stamp_tenant(
+                {"group": group, "name": name, "schema": stream_schema,
+                 "elements": elems},
+                group,
+            )
+
+        self._deliver_writes(
+            Topic.STREAM_WRITE.value,
+            {n: env_for(e) for n, e in by_node.items()},
+            addr_of,
+            {n: env_for(e) for n, e in spool_items.items()},
+        )
+        return len(elements)
+
+    def query_stream(self, req: QueryRequest, tracer=None) -> QueryResult:
+        own_tracer = tracer is None and req.trace
+        if own_tracer:
+            tracer = Tracer("liaison:stream")
+        t = tracer if tracer is not None else NOOP_TRACER
+        guard = _QueryGuard(self.query_budget_s)
+        assignment = self._shard_assignment(
+            req.groups[0], req.stages, guard=guard
+        )
+        off = req.offset or 0
+        limit = req.limit or 100
+        node_req = dataclasses.replace(req, offset=0, limit=off + limit)
+        rows: list[dict] = []
+        req_json = serde.query_request_to_json(node_req)
+
+        def env_of(shards):
+            return self._stamp_tenant(
+                {"request": req_json, "shards": shards},
+                req.groups[0] if req.groups else "",
+            )
+
+        def on_reply(node, shards, r, sp):
+            sp.tag("rows", len(r["data_points"]))
+            rows.extend(r["data_points"])
+
+        self._scatter(
+            Topic.STREAM_QUERY.value,
+            assignment, env_of, guard, tracer, on_reply,
+            failover=self._failover_ok(req.groups[0], req.stages),
+        )
+        with t.span("merge") as ms:
+            _sort_merged_rows(rows, req)
+            ms.tag("rows", len(rows))
+        res = QueryResult()
+        # decode back to the native engine contract (body/tags as bytes):
+        # cluster and standalone callers see identical shapes
+        import base64
+
+        for dp in rows[off : off + limit]:
+            dp = dict(dp)
+            dp["body"] = base64.b64decode(dp.get("body", ""))
+            dp["tags"] = serde.tags_from_json(dp["tags"])
+            res.data_points.append(dp)
+        self._finish_degraded(res, guard, tracer, "stream")
+        if own_tracer and req.trace:
+            res.trace = dict(res.trace or {})
+            res.trace["span_tree"] = tracer.finish()
+        return res
+
+    # -- trace plane (liaison trace svc analog) -----------------------------
+    def write_trace(
+        self, group: str, name: str, trace_schema: dict, spans: list[dict],
+        ordered_tags: tuple[str, ...] = (),
+    ) -> int:
+        from banyandb_tpu_torch.models.trace import trace_shard_id
+
+        shard_num = self.registry.get_group(group).resource_opts.shard_num
+        tid_tag = trace_schema["trace_id_tag"]
+        by_node, spool_items, addr_of = self._route_items(
+            spans,
+            lambda s: trace_shard_id(str(s["tags"][tid_tag]), shard_num),
+        )
+
+        def env_for(batch):
+            return self._stamp_tenant({
+                "group": group, "name": name, "schema": trace_schema,
+                "spans": batch, "ordered_tags": list(ordered_tags),
+            }, group)
+
+        self._deliver_writes(
+            Topic.TRACE_WRITE.value,
+            {n: env_for(b) for n, b in by_node.items()},
+            addr_of,
+            {n: env_for(b) for n, b in spool_items.items()},
+        )
+        return len(spans)
+
+    def query_trace_by_id(self, group: str, name: str, trace_id: str) -> list[dict]:
+        """Single-shard lookup: route to the trace's shard owner."""
+        from banyandb_tpu_torch.models.trace import trace_shard_id
+
+        shard_num = self.registry.get_group(group).resource_opts.shard_num
+        shard = trace_shard_id(trace_id, shard_num)
+        node = self.selector.primary(shard, self.alive)
+        r = self.transport.call(
+            node.addr,
+            Topic.TRACE_QUERY_BY_ID.value,
+            {"group": group, "name": name, "trace_id": trace_id},
+            timeout=_RPC_QUERY_S,
+        )
+        import base64
+
+        # native engine contract: span payloads come back as bytes
+        return [
+            {**s, "span": base64.b64decode(s.get("span", ""))}
+            for s in r["spans"]
+        ]
+
+    def query_trace_ordered(
+        self,
+        group: str,
+        name: str,
+        order_tag: str,
+        time_range,
+        *,
+        lo=None,
+        hi=None,
+        asc: bool = False,
+        limit: int = 20,
+        stages: tuple[str, ...] = (),
+    ) -> list[str]:
+        """Distributed ordered-trace retrieval (TraceService.Query with a
+        TYPE_TREE order, trace_analyzer.go:104 ordered path): scatter the
+        sidx scan to every data node, k-way merge per-node (key, id)
+        results at the liaison.  A trace lives wholly on one shard, so
+        cross-node duplicates only arise from replicas — dedup by id
+        keeps the first (correctly-ordered) occurrence."""
+        import heapq
+
+        assignment = self._shard_assignment(group, stages)
+        streams = []
+        for node in assignment:
+            r = self.transport.call(
+                node.addr,
+                Topic.TRACE_QUERY_ORDERED.value,
+                {
+                    "group": group, "name": name, "order_tag": order_tag,
+                    "begin": time_range.begin_millis,
+                    "end": time_range.end_millis,
+                    "lo": lo, "hi": hi, "asc": asc, "limit": limit,
+                },
+                timeout=_RPC_QUERY_S,
+            )
+            streams.append([(int(k), tid) for k, tid in r["results"]])
+        merged = heapq.merge(*streams, key=lambda kt: kt[0] if asc else -kt[0])
+        out: list[str] = []
+        for _k, tid in merged:
+            if tid in out:
+                continue
+            out.append(tid)
+            if len(out) >= limit:
+                break
+        return out
+
+    def query_trace(self, req: QueryRequest, tracer=None) -> QueryResult:
+        """Full trace query surface, distributed (TraceService.Query
+        analog): the complete QueryRequest scatters to shard owners over
+        TRACE_QUERY_EXEC under the query guard (deadline budget,
+        exhaustive failover, degraded markers); per-node span rows merge
+        at the liaison — sidx (key, trace_id) partial merge on ordered
+        plans, deterministic (ts, trace_id, span) order otherwise — with
+        global limit+offset applied post-merge (each node pre-trims to
+        offset+limit).  Trace-id plans scatter only to the ids' hash-
+        shard owners; a trace lives wholly on one shard."""
+        import base64
+
+        from banyandb_tpu_torch.models.trace import (
+            _DEFAULT_LIMITS,
+            _row_order,
+            classify_plan,
+            trace_shard_id,
+        )
+
+        own_tracer = tracer is None and req.trace
+        if own_tracer:
+            tracer = Tracer("liaison:trace")
+        t = tracer if tracer is not None else NOOP_TRACER
+        group = req.groups[0]
+        tid_tag = self.registry.get_trace(group, req.name).trace_id_tag
+        kind, tids, _lo, _hi, _residual = classify_plan(req, tid_tag)
+        off = max(req.offset or 0, 0)
+        limit = req.limit or _DEFAULT_LIMITS[kind]
+        guard = _QueryGuard(self.query_budget_s)
+        assignment = self._shard_assignment(group, req.stages, guard=guard)
+        if kind == "by_id":
+            shard_num = self.registry.get_group(group).resource_opts.shard_num
+            owned = {trace_shard_id(tid, shard_num) for tid in tids}
+            assignment = {
+                node: kept
+                for node, shards in assignment.items()
+                if (kept := [s for s in shards if s in owned])
+            }
+        # one batch per scatter leg: the ordered merge dedups replica /
+        # failover double-reports by trace id, first batch wins
+        batches: list[list[dict]] = []
+        node_req = dataclasses.replace(req, offset=0, limit=off + limit)
+        req_json = serde.query_request_to_json(node_req)
+
+        def env_of(shards):
+            return self._stamp_tenant(
+                {"request": req_json, "shards": shards}, group
+            )
+
+        def on_reply(node, shards, r, sp):
+            sp.tag("rows", len(r["data_points"]))
+            # decode back to the native engine contract here: the merge
+            # keys compare raw span bytes, not base64 text
+            batch = []
+            for dp in r["data_points"]:
+                dp = dict(dp)
+                dp["span"] = base64.b64decode(dp.get("span", ""))
+                dp["tags"] = serde.tags_from_json(dp["tags"])
+                batch.append(dp)
+            batches.append(batch)
+
+        if assignment:
+            self._scatter(
+                Topic.TRACE_QUERY_EXEC.value,
+                assignment, env_of, guard, tracer, on_reply,
+                failover=self._failover_ok(group, req.stages),
+            )
+        res = QueryResult()
+        with t.span("merge") as ms:
+            if kind == "ordered":
+                res.data_points = _merge_ordered_trace_rows(
+                    batches, asc=(req.order_by_dir != "desc"),
+                    offset=off, limit=limit,
+                )
+            else:
+                rows = [dp for batch in batches for dp in batch]
+                rows.sort(key=_row_order)
+                res.data_points = rows[off : off + limit]
+            ms.tag("rows", len(res.data_points))
+        self._finish_degraded(res, guard, tracer, "trace")
+        if own_tracer and req.trace:
+            res.trace = dict(res.trace or {})
+            res.trace["span_tree"] = tracer.finish()
+        return res
+
+
+def _merge_ordered_trace_rows(
+    batches: list[list[dict]], *, asc: bool, offset: int, limit: int
+) -> list[dict]:
+    """sidx-ordered partial merge: group each leg's span rows per trace
+    (every row carries its trace's sidx key), order traces globally by
+    (key, id) with the walk's direction and tie-break, dedup replica
+    overlap by trace id (first leg wins), then page on TRACES — the same
+    limit/offset unit as the standalone sidx walk."""
+    groups: dict[str, tuple[int, list[dict]]] = {}
+    for batch in batches:
+        batch_tids: set[str] = set()
+        for dp in batch:
+            tid = dp.get("trace_id", "")
+            if tid in groups and tid not in batch_tids:
+                continue  # replica double-report: an earlier leg won
+            batch_tids.add(tid)
+            ent = groups.get(tid)
+            if ent is None:
+                ent = (int(dp.get("key", 0)), [])
+                groups[tid] = ent
+            ent[1].append(dp)
+    traces = sorted(
+        groups.items(),
+        key=lambda kv: ((kv[1][0] if asc else -kv[1][0]), kv[0]),
+    )
+    out: list[dict] = []
+    for _tid, (_k, spans) in traces[offset : offset + limit]:
+        out.extend(spans)
+    return out
+
+
+class ChunkedSyncClient:
+    """Ship a sealed part to a data node (pub/chunked_sync.go analog):
+    logical files, 1 MiB chunks, CRC32 per chunk."""
+
+    CHUNK = 1 << 20
+
+    def __init__(self, transport, addr: str):
+        self.transport = transport
+        self.addr = addr
+
+    def sync_part(
+        self,
+        part_dir,
+        *,
+        group: str,
+        segment: str,
+        segment_start_millis: int,
+        shard: str,
+        meta_patch: Optional[dict] = None,
+        placement_epoch: Optional[int] = None,
+    ) -> str:
+        """meta_patch: extra keys merged into the shipped metadata.json
+        (not the on-disk original) — tier migration uses it to stamp
+        catalog/ordered_tags on engine-flushed parts so the receiver
+        routes and aux-indexes them like wqueue-sealed ones.
+        placement_epoch: optional epoch fence (cluster/placement.py) —
+        receivers reject sessions stamped with a superseded epoch."""
+        import json as _json
+        import zlib
+        import base64
+        from pathlib import Path
+
+        part_dir = Path(part_dir)
+        session = uuid.uuid4().hex
+        base = {
+            "session": session,
+            "group": group,
+            "segment": segment,
+            "segment_start_millis": segment_start_millis,
+            "shard": shard,
+        }
+        if placement_epoch is not None:
+            base["placement_epoch"] = placement_epoch
+        self.transport.call(
+            self.addr, Topic.SYNC_PART.value, dict(base, phase="begin"),
+            timeout=_RPC_SYNC_S,
+        )
+        for f in sorted(part_dir.iterdir()):
+            data = f.read_bytes()
+            if meta_patch and f.name == "metadata.json":
+                data = _json.dumps(
+                    {**_json.loads(data), **meta_patch}
+                ).encode()
+            for off in range(0, max(len(data), 1), self.CHUNK):
+                blob = data[off : off + self.CHUNK]
+                self.transport.call(
+                    self.addr,
+                    Topic.SYNC_PART.value,
+                    dict(
+                        base,
+                        phase="chunk",
+                        file=f.name,
+                        offset=off,
+                        data=base64.b64encode(blob).decode(),
+                        crc32=zlib.crc32(blob),
+                    ),
+                    timeout=_RPC_SYNC_S,
+                )
+        r = self.transport.call(
+            self.addr, Topic.SYNC_PART.value, dict(base, phase="finish"),
+            timeout=_RPC_SYNC_S,
+        )
+        return r["introduced"]

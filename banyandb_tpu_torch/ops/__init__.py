@@ -1,6 +1,7 @@
 """Device kernel substrate on torch tensors: the counterpart of
 banyandb_tpu.ops for the measure aggregate path."""
 
+from banyandb_tpu_torch.ops.dedup import latest_by_version
 from banyandb_tpu_torch.ops.decode import (
     decode_chunk,
     delta_decode,
@@ -27,3 +28,4 @@ from banyandb_tpu_torch.ops.percentile import (
     group_histogram,
     group_percentile_histogram,
 )
+from banyandb_tpu_torch.ops.topk import topk_groups

@@ -1,0 +1,398 @@
+"""Mesh fast path for cluster measure aggregation.
+
+When the data-node engines live in this process and share one device
+mesh (the multi-node-in-one-process test/dryrun topology — and, on real
+hardware, a liaison co-located with its data plane on one host's cards),
+the liaison's aggregate path runs the whole map+reduce as ONE step
+over the mesh: per-slot scan/group/reduce on each slot's device, then
+the sum/amin/amax collective in slot order (parallel/dist_exec.py) —
+instead of per-node serde partials + host-numpy combine.
+
+Reference analog: the vectorized fast-path switch in
+pkg/query/vectorized/measure/adapter.go:43 — capability-checked per
+query, falling back to the general path on any unsupported shape.
+
+Parity contract: the mesh path reuses the host path's own gather
+(measure_exec._gather_rows: row-exact time filter, global-dict recode,
+version dedup per node) and its own finalizer
+(measure_exec.finalize_partials), so anything the collective reduce
+produces is shaped and selected identically to the host combine.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+
+from banyandb_tpu_torch.query import measure_exec
+
+_MAX_MESH_GROUPS = 1 << 16
+_MIN_CHUNK_ROWS = 256
+# Fused dist path: per-slot slices are chunked at this fixed width and
+# scanned inside ONE collective step (query/fused_exec), so the chunk
+# width is bounded instead of one unbounded-width chunk per row-count
+# bucket.
+_FUSED_DIST_CHUNK = 1 << 16
+
+
+class MeshUnsupported(Exception):
+    """Query shape the mesh plan cannot express; caller falls back."""
+
+
+def _supported_conds(req) -> list:
+    conds, expr = measure_exec._lower_criteria(req.criteria)
+    if expr:
+        raise MeshUnsupported("OR criteria trees ride the general path")
+    names = []
+    for c in conds:
+        if c.op != "eq":
+            raise MeshUnsupported(f"predicate op {c.op} not mesh-lowered")
+        names.append(c.name)
+    if len(set(names)) != len(names):
+        raise MeshUnsupported("duplicate eq predicates on one tag")
+    return conds
+
+
+def _h2d_bytes(chunks: dict) -> int:
+    """Bytes the packed chunks put on CUDA slots (each slot's leaf is
+    its own rows of the shipped tensor, so the leaves sum to it)."""
+    leaves = [chunks["valid"]]
+    leaves += list(chunks["tags"].values()) + list(chunks["fields"].values())
+    return sum(t.nbytes for col in leaves for t in col if t.is_cuda)
+
+
+class MeshExecutor:
+    """Executes supported aggregate queries on a shared mesh.
+
+    engines_by_node: node name -> in-process MeasureEngine handle for the
+    node's storage (same handles the LocalTransport topology serves).
+    """
+
+    def __init__(self, mesh, engines_by_node: dict):
+        self.mesh = mesh
+        self.engines = engines_by_node
+        self.executions = 0  # test observability: fast path actually ran
+        # the last executed query's host/device split: gather_ms (source
+        # selection + row gather), pack_ms (pad + host-to-device copy),
+        # h2d_bytes, device_ms (the steps up to their results on the
+        # host), passes (2 for a percentile), num_chunks (a slot's)
+        self.last_stats: dict = {}
+
+    def execute(self, m, req, assignment):
+        from banyandb_tpu_torch.parallel import dist_exec
+
+        group_tags = set(req.group_by.tag_names) if req.group_by else set()
+        if (req.group_by or req.agg) and (
+            set(req.tag_projection) - group_tags
+        ):
+            # representative-tag projection needs the host partial path's
+            # scan-order tracking; the collective plane carries dense
+            # sums only (applies to grouped AND global aggregates)
+            raise MeshUnsupported("projection beyond group tags")
+        if not (req.agg or req.group_by):
+            raise MeshUnsupported("raw row queries ride scatter-gather")
+        conds = _supported_conds(req)
+        group_tags = tuple(req.group_by.tag_names) if req.group_by else ()
+        agg = req.agg
+        want_percentile = bool(agg and agg.function == "percentile")
+
+        fields = set()
+        if agg:
+            fields.add(agg.field_name)
+        if req.top:
+            fields.add(req.top.field_name)
+        if not fields:
+            raise MeshUnsupported("group-by without aggregate field")
+        fields = tuple(sorted(fields))
+
+        tags_code = tuple(sorted(set(group_tags) | {c.name for c in conds}))
+        gd = measure_exec.GlobalDicts(tags_code)
+
+        # --- select sources per node (its assigned shards only) ----------
+        # nodes' gathers are independent (per-node TSDBs; the shared
+        # serving cache is lock-guarded), so decode them concurrently —
+        # parallel_map preserves assignment order, keeping the combine
+        # order (and thus results) identical to the serial loop
+        from banyandb_tpu_torch.storage.chunk_stream import parallel_map
+
+        t_gather = time.perf_counter()
+        gather_ops = []
+        for node, shards in assignment.items():
+            eng = self.engines.get(node.name)
+            if eng is None:
+                raise MeshUnsupported(f"no in-process engine for {node.name}")
+            gather_ops.append(
+                lambda e=eng, sh=shards: e.gather_query_sources(
+                    req, shard_ids=sh
+                )
+            )
+        per_node_srcs = parallel_map(gather_ops)
+
+        # group-cardinality budget BEFORE the expensive row gather/dedup:
+        # union the sources' own dictionaries per group tag (dict metadata
+        # only, no row work) so an over-budget query falls back cheaply
+        est = 1
+        for t in group_tags:
+            union: set = set()
+            for srcs in per_node_srcs:
+                for src in srcs:
+                    union.update(src.dicts.get(t, ()))
+            est *= max(len(union), 1)
+        if est > _MAX_MESH_GROUPS:
+            raise MeshUnsupported(f"~{est} groups exceed the mesh budget")
+
+        # --- gather rows per node, shared global dicts -------------------
+        per_node_cols = []
+        for srcs in per_node_srcs:
+            cols = measure_exec._gather_rows(
+                srcs,
+                list(tags_code),
+                list(fields),
+                gd,
+                req.time_range.begin_millis,
+                req.time_range.end_millis,
+            )
+            if cols["ts"].shape[0]:
+                per_node_cols.append(cols)
+
+        gather_ms = (time.perf_counter() - t_gather) * 1e3
+        radices = tuple(gd.size(t) for t in group_tags)
+        num_groups = 1
+        for r in radices:
+            num_groups *= r
+        if num_groups > _MAX_MESH_GROUPS:
+            raise MeshUnsupported(f"{num_groups} groups exceed mesh budget")
+
+        plan = dist_exec.DistPlan(
+            tags_code=tags_code,
+            fields=fields,
+            group_tags=group_tags,
+            radices=radices,
+            num_groups=num_groups,
+            eq_preds=tuple(c.name for c in conds),
+        )
+        pred_codes = {
+            c.name: gd.code_of(
+                c.name, measure_exec._tag_value_bytes(c.value)
+            )
+            for c in conds
+        }
+
+        from banyandb_tpu_torch.query import fused_exec
+
+        # read the A/B flag ONCE per query so pack and aggregate can
+        # never disagree mid-flight on the chunk layout
+        use_fused = fused_exec.fused_enabled()
+        t_pack = time.perf_counter()
+        chunks, total, num_chunks = self._pack(
+            plan, per_node_cols, use_fused
+        )
+        pack_ms = (time.perf_counter() - t_pack) * 1e3
+        if total == 0:
+            empty = self._to_partials(plan, gd, None, want_percentile)
+            return measure_exec.finalize_partials(m, req, [empty])
+
+        t_dev = time.perf_counter()
+        # mesh result boundary: the whole reduced tree moves in one
+        # batched device-to-host copy
+        out = measure_exec.device_get(
+            self._aggregate(
+                plan, chunks, num_chunks, use_fused, pred_codes=pred_codes
+            )
+        )
+        self.executions += 1
+        device_ms = (time.perf_counter() - t_dev) * 1e3
+
+        if want_percentile:
+            # two-step on the SAME packed chunks: global field range from
+            # the first reduce, then a histogram reduce with that range
+            # (the cluster path's two-round range agreement, on-mesh)
+            f = agg.field_name
+            count = np.asarray(out["count"], dtype=np.float64)
+            mins = np.asarray(out["mins"][f], dtype=np.float64)
+            maxs = np.asarray(out["maxs"][f], dtype=np.float64)
+            nz = count > 0
+            lo = float(mins[nz].min()) if nz.any() else 0.0
+            hi = float(maxs[nz].max()) if nz.any() else 1.0
+            span = max(hi - lo, 1e-6)
+            hist_plan = dist_exec.DistPlan(
+                tags_code=plan.tags_code,
+                fields=plan.fields,
+                group_tags=plan.group_tags,
+                radices=plan.radices,
+                num_groups=plan.num_groups,
+                eq_preds=plan.eq_preds,
+                want_hist=f,
+            )
+            # second-pass result boundary
+            t_dev = time.perf_counter()
+            out = measure_exec.device_get(
+                self._aggregate(
+                    hist_plan,
+                    chunks,
+                    num_chunks,
+                    use_fused,
+                    pred_codes=pred_codes,
+                    hist_lo=lo,
+                    hist_span=span,
+                )
+            )
+            device_ms += (time.perf_counter() - t_dev) * 1e3
+            partial = self._to_partials(
+                hist_plan, gd, out, True, hist_lo=lo, hist_span=span
+            )
+        else:
+            partial = self._to_partials(plan, gd, out, False)
+        self.last_stats = {
+            "gather_ms": gather_ms,
+            "pack_ms": pack_ms,
+            "h2d_bytes": _h2d_bytes(chunks),
+            "device_ms": device_ms,
+            "passes": 2 if want_percentile else 1,
+            "num_chunks": num_chunks,
+        }
+        return measure_exec.finalize_partials(m, req, [partial])
+
+    # -- execution ---------------------------------------------------------
+    def _aggregate(
+        self,
+        plan,
+        chunks,
+        num_chunks,
+        use_fused,
+        pred_codes=None,
+        hist_lo: float = 0.0,
+        hist_span: float = 1.0,
+    ):
+        """One collective reduce over the mesh: the fused chunked-scan
+        step when the A/B flag is on, the legacy single-width step
+        otherwise (both carry the identical sum/amin/amax collective)."""
+        from banyandb_tpu_torch.parallel import dist_exec
+        from banyandb_tpu_torch.query import fused_exec
+
+        if use_fused:
+            return fused_exec.fused_distributed_aggregate(
+                self.mesh,
+                plan,
+                num_chunks,
+                chunks,
+                pred_codes=pred_codes,
+                hist_lo=hist_lo,
+                hist_span=hist_span,
+            )
+        return dist_exec.distributed_aggregate(
+            self.mesh,
+            plan,
+            chunks,
+            pred_codes=pred_codes,
+            hist_lo=hist_lo,
+            hist_span=hist_span,
+        )
+
+    # -- packing -----------------------------------------------------------
+    def _pack(self, plan, per_node_cols, use_fused: bool = False):
+        """Distribute all (already per-node deduped) rows over the mesh's
+        device slots as per-slot [num_chunks * nrows] tensors.
+
+        Legacy (staged) layout is one chunk whose width is the
+        power-of-two bucket of the per-slot row count — unbounded as
+        data grows.  The fused layout caps the chunk width at
+        _FUSED_DIST_CHUNK and buckets the CHUNK COUNT instead (scanned
+        on the device inside the one collective step); below the cap the
+        two layouts — and their math — are identical."""
+        d = self.mesh.size
+        if per_node_cols:
+            tags = {
+                t: np.concatenate([c["tags_code"][t] for c in per_node_cols])
+                for t in plan.tags_code
+            }
+            flds = {
+                f: np.concatenate(
+                    [c["fields"][f] for c in per_node_cols]
+                ).astype(np.float32)
+                for f in plan.fields
+            }
+            total = next(iter(tags.values())).shape[0] if tags else (
+                next(iter(flds.values())).shape[0]
+            )
+        else:
+            tags = {t: np.zeros(0, np.int32) for t in plan.tags_code}
+            flds = {f: np.zeros(0, np.float32) for f in plan.fields}
+            total = 0
+
+        per = max(math.ceil(total / d) if total else 1, 1)
+        nrows = max(1 << (per - 1).bit_length(), _MIN_CHUNK_ROWS)
+        num_chunks = 1
+        if use_fused and nrows > _FUSED_DIST_CHUNK:
+            from banyandb_tpu_torch.query import fused_exec
+
+            num_chunks = fused_exec.chunk_count_bucket(
+                math.ceil(per / _FUSED_DIST_CHUNK)
+            )
+            nrows = _FUSED_DIST_CHUNK
+        slots = []
+        for i in range(d):
+            s, e = i * per, min((i + 1) * per, total)
+            slots.append(
+                {
+                    "tags": {t: a[s:e] for t, a in tags.items()},
+                    "fields": {f: a[s:e] for f, a in flds.items()},
+                }
+            )
+        from banyandb_tpu_torch.parallel import dist_exec
+
+        chunks = dist_exec.stack_shard_chunks(
+            self.mesh, slots, plan.tags_code, plan.fields, num_chunks * nrows
+        )
+        return chunks, total, num_chunks
+
+    # -- result shaping ----------------------------------------------------
+    @staticmethod
+    def _to_partials(
+        plan, gd, out, want_hist, hist_lo: float = 0.0, hist_span: float = 1.0
+    ):
+        if out is None:
+            return measure_exec.Partials(
+                group_tags=plan.group_tags,
+                groups=[],
+                count=np.zeros(0, dtype=np.float64),
+                sums={f: np.zeros(0, dtype=np.float64) for f in plan.fields},
+                mins={f: np.zeros(0, dtype=np.float64) for f in plan.fields},
+                maxs={f: np.zeros(0, dtype=np.float64) for f in plan.fields},
+            )
+        count = np.asarray(out["count"], dtype=np.float64)
+        nz = np.nonzero(count > 0)[0]
+        values = {t: gd.values(t) for t in plan.group_tags}
+        if plan.group_tags:
+            codes = np.unravel_index(nz, plan.radices)
+            groups = [
+                tuple(
+                    values[t][codes[i][k]]
+                    for i, t in enumerate(plan.group_tags)
+                )
+                for k in range(nz.size)
+            ]
+        else:
+            groups = [()] if nz.size else []
+        take = lambda a: np.asarray(a, dtype=np.float64)[nz]  # noqa: E731
+        partial = measure_exec.Partials(
+            group_tags=plan.group_tags,
+            groups=groups,
+            count=count[nz],
+            sums={f: take(out["sums"][f]) for f in plan.fields},
+            mins={f: take(out["mins"][f]) for f in plan.fields},
+            maxs={f: take(out["maxs"][f]) for f in plan.fields},
+        )
+        if want_hist and plan.want_hist:
+            partial.hist = np.asarray(out["hist"], dtype=np.float64)[nz]
+            partial.hist_lo = hist_lo
+            partial.hist_span = hist_span
+        for f in plan.fields:
+            if nz.size:
+                partial.field_stats[f] = (
+                    float(partial.mins[f].min()),
+                    float(partial.maxs[f].max()),
+                )
+        return partial

@@ -18,8 +18,13 @@ different reduction orders.
 The chunk-count bucket (``FusedSpec = PlanSpec + num_chunks``,
 power-of-two buckets) fixes the stacked layout, the footprint estimate
 and the device-cache key; padding chunks are fully invalid and the body
-runs over the real chunks only.  The mesh half of the JAX executor
-(``build_fused_dist_step``) comes with the distributed slice.
+runs over the real chunks only.
+
+The mesh half (``build_fused_dist_step``) runs the same chunked scan on
+every slot of a ('shard','seg') mesh with the dist-path collective (sum
+count/sums/hist, amin/amax in slot order), so a distributed scan has a
+bounded chunk width instead of one unbounded-width chunk per row-count
+bucket.
 """
 
 from __future__ import annotations
@@ -375,3 +380,113 @@ def _stack_trees(trees: list):
     if isinstance(first, dict):
         return {k: _stack_trees([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# Mesh-parallel fused step: the whole distributed scan as one step over the
+# mesh's slots (dist_exec's map half per fixed-width chunk, dist_exec's
+# collective across slots).
+# ---------------------------------------------------------------------------
+
+
+def _kahan_add(s: torch.Tensor, c: torch.Tensor, x: torch.Tensor):
+    """One compensated accumulation step; true sum ~= s - c."""
+    y = x - c
+    t = s + y
+    return t, (t - s) - y
+
+
+def _fused_dist_slot(
+    plan, num_chunks: int, chunk: dict, pred_codes: dict, hist_lo, hist_span
+) -> dict:
+    """One slot's [num_chunks * nrows] slice -> chunked scan -> partials.
+
+    Per-chunk f32 partials combine across chunks with Kahan-compensated
+    f32 (count/sums/hist) and exact min/max — the precision contract's
+    bounded-span rule, on the device.  With num_chunks=1 the math
+    reduces to the legacy step exactly (Kahan from zero is the
+    identity)."""
+    from banyandb_tpu_torch import ops
+    from banyandb_tpu_torch.parallel import dist_exec
+
+    nhb = dist_exec._NUM_HIST_BUCKETS
+    G = plan.num_groups
+    dev = chunk["valid"].device
+    zero = torch.zeros(G, dtype=torch.float32, device=dev)
+    count = (zero, zero)
+    sums = {f: (zero, zero) for f in plan.fields}
+    mins = {f: torch.full((G,), float("inf"), device=dev) for f in plan.fields}
+    maxs = {f: torch.full((G,), float("-inf"), device=dev) for f in plan.fields}
+    if plan.want_hist:
+        hzero = torch.zeros((G, nhb), dtype=torch.float32, device=dev)
+        hist = (hzero, hzero)
+    rows = _tree_map(lambda a: a.view(num_chunks, -1), chunk)
+    for k in range(num_chunks):
+        c = _tree_map(lambda a, k=k: a[k], rows)
+        # the SAME map half the legacy mesh step runs (dist_exec.map_chunk)
+        part, key, mask = dist_exec.map_chunk(plan, c, pred_codes)
+        count = _kahan_add(*count, part.count)
+        sums = {f: _kahan_add(*sums[f], part.sums[f]) for f in plan.fields}
+        mins = {f: torch.minimum(mins[f], part.mins[f]) for f in plan.fields}
+        maxs = {f: torch.maximum(maxs[f], part.maxs[f]) for f in plan.fields}
+        if plan.want_hist:
+            h = ops.group_histogram(
+                key, mask, c["fields"][plan.want_hist], G,
+                hist_lo, hist_span, nhb,
+            )
+            hist = _kahan_add(*hist, h)
+    out = {
+        "count": count[0] - count[1],
+        "sums": {f: sums[f][0] - sums[f][1] for f in plan.fields},
+        "mins": mins,
+        "maxs": maxs,
+    }
+    if plan.want_hist:
+        out["hist"] = hist[0] - hist[1]
+    return out
+
+
+_DIST_STEP_CACHE: dict[tuple, object] = {}
+
+
+def build_fused_dist_step(mesh, plan, num_chunks: int):
+    """-> f(chunks, pred_codes, hist_lo, hist_span): the whole
+    distributed scan as one step over the mesh.  ``chunks`` leaves are
+    per-slot [num_chunks * nrows] tensors (``dist_exec.
+    stack_shard_chunks``); outputs are tensors on the first slot's
+    device.  Memoized per (slot devices, plan, chunk bucket)."""
+    from banyandb_tpu_torch.parallel import dist_exec
+
+    cache_key = (dist_exec._mesh_key(mesh), plan, num_chunks)
+    cached = _DIST_STEP_CACHE.get(cache_key)
+    if cached is not None:
+        return cached
+
+    def step(chunks, pred_codes, hist_lo, hist_span):
+        return dist_exec.reduce_slots(
+            plan,
+            [
+                _fused_dist_slot(
+                    plan, num_chunks, c, pred_codes, hist_lo, hist_span
+                )
+                for c in dist_exec.slot_chunks(plan, chunks)
+            ],
+        )
+
+    _DIST_STEP_CACHE[cache_key] = step
+    return step
+
+
+def fused_distributed_aggregate(
+    mesh,
+    plan,
+    num_chunks: int,
+    chunks: dict,
+    pred_codes=None,
+    hist_lo: float = 0.0,
+    hist_span: float = 1.0,
+):
+    """Convenience wrapper mirroring dist_exec.distributed_aggregate."""
+    step = build_fused_dist_step(mesh, plan, num_chunks)
+    codes = {t: int((pred_codes or {}).get(t, -1)) for t in plan.eq_preds}
+    return step(chunks, codes, float(hist_lo), float(hist_span))

@@ -46,10 +46,21 @@ before the last line is printed:
 9. host-only models: ``TraceEngine`` (by-id, ordered, one BydbQL scan)
    and ``PropertyEngine`` (apply, query, revisions) at a small size
    against plain Python;
-10. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
+10. cluster path: the measure configuration at 1,048,576 points written
+   point by point through ``Liaison.write_measure`` into two
+   ``DataNode``s on the card over ``LocalTransport`` (group ``sw``,
+   ``shard_num=4``), then six BydbQL aggregates (TOP 10 by mean latency
+   where region = 'r3', p50/p99 of latency, count/sum/min/max of calls,
+   each by svc) through ``Liaison.query_measure`` three times on the
+   mesh fast path over ``make_mesh(1, 1)`` (the card) and over
+   ``make_mesh(4, 2)`` (8 slots on the card), and a ``region != 'r3'``
+   query that must fall back to the scatter partials; each result
+   against the host combine, the same mesh on CPU slots and a numpy
+   oracle, ``executions`` once per mesh query;
+11. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
-Every launch count is set to 0 just before a path (4, 5, 6, 8) is
+Every launch count is set to 0 just before a path (4, 5, 6, 8, 10) is
 driven and read just after it; each kernel of a path must have launched
 there (the stream path launches none of the four kernels: its mask is
 PyTorch compares on the card).
@@ -89,6 +100,7 @@ PATH_KERNELS = {
     "executor": ("fused_group_multi", "widen_narrow"),
     "decode": ("prefix_sum_narrow",),
     "engine": ("fused_group_multi",),
+    "cluster": ("fused_group_multi",),
 }
 
 
@@ -758,11 +770,12 @@ def oracle_check(pts: dict, p, res, what: str) -> None:
         lat = pts["latency"][keep]
         order = np.lexsort((lat, svc))
         bounds = np.searchsorted(svc[order], np.arange(N_SVC + 1))
+        lat_sorted = lat[order]
         est = res.values["percentile(latency)"]
         name_to_id = {g[0]: int(g[0][4:]) for g in res.groups}
         for row, grp in zip(est, res.groups):
             gid = name_to_id[grp[0]]
-            vals = lat[order][bounds[gid]: bounds[gid + 1]]
+            vals = lat_sorted[bounds[gid]: bounds[gid + 1]]
             for q, e in zip((0.5, 0.99), row):
                 k = max(int(np.ceil(q * len(vals))), 1) - 1
                 # + 1e-4: the card buckets f32 values, the oracle
@@ -881,14 +894,16 @@ def decode_path(hk, part, device: str) -> dict:
 ENGINE_GROUP = "sw"
 
 
-def engine_registry(root: str):
+def engine_registry(root: str, shard_num: int = 2):
     from banyandb_tpu_torch.api import (
         Catalog, Entity, FieldSpec, FieldType, Group, Measure, ResourceOpts,
         SchemaRegistry, TagSpec, TagType,
     )
 
     reg = SchemaRegistry(os.path.join(root, "schema"))
-    reg.create_group(Group(ENGINE_GROUP, Catalog.MEASURE, ResourceOpts(shard_num=2)))
+    reg.create_group(
+        Group(ENGINE_GROUP, Catalog.MEASURE, ResourceOpts(shard_num=shard_num))
+    )
     reg.create_measure(
         Measure(
             group=ENGINE_GROUP,
@@ -1408,6 +1423,258 @@ def host_models_phase(root: str) -> None:
     finally:
         peng.close()
 
+# -- phase 10: the cluster path ------------------------------------------------
+
+# Cut from the 4,194,304 points of phases 4 and 6: every point crosses
+# the liaison one by one (DataPointValue, shard routing, the JSON-able
+# envelope, the data node's per-point write), so the full size would
+# take the phase past two minutes; 1,048,576 points are still two
+# 65,536-row chunks on each of the 8 slots (PERF.md section 4)
+CLUSTER_N = 1 << 20
+CLUSTER_BATCH = 1 << 16
+
+
+def cluster_queries(n: int) -> dict:
+    """name -> (BydbQL text, whether the mesh takes it)."""
+    span = f"TIME BETWEEN {T0} AND {T0 + n - 1}"
+    frm = f"FROM MEASURE service_resp_time IN {ENGINE_GROUP} {span}"
+    by = f"GROUP BY svc LIMIT {N_SVC}"
+    out = {
+        "topn": (f"SELECT mean(latency) {frm} WHERE region = 'r3' GROUP BY svc "
+                 "TOP 10 BY latency", True),
+        "percentile": (f"SELECT percentile(latency, 0.5, 0.99) {frm} {by}", True),
+    }
+    for fn in ("count", "sum", "min", "max"):
+        out[fn] = (f"SELECT {fn}(calls) {frm} {by}", True)
+    # ne is not mesh-lowered: the scatter partials answer it
+    out["fallback_ne"] = (
+        f"SELECT mean(latency) {frm} WHERE region != 'r3' GROUP BY svc "
+        "TOP 10 BY latency", False)
+    return out
+
+
+def cluster_same(a, b, what: str, host: bool = False) -> None:
+    """Two cluster results: the same groups with the same values.  Sums
+    and means of latency within RTOL; against the host combine (`host`)
+    the mesh's extremes are the host's rounded to f32 and its
+    percentiles, over the f32 range, within RTOL; everything else
+    exact."""
+    check(sorted(a.groups) == sorted(b.groups), f"{what}: groups differ")
+    check(sorted(a.values) == sorted(b.values), f"{what}: value keys differ")
+    for key in b.values:
+        got = dict(zip(a.groups, a.values[key]))
+        want = dict(zip(b.groups, b.values[key]))
+        if key.startswith(("min", "max")) and host:
+            ok = got == {g: float(np.float32(w)) for g, w in want.items()}
+        elif "latency" in key and (host or not key.startswith("percentile")):
+            ok = all(np.allclose(got[g], want[g], rtol=RTOL, atol=0.0) for g in want)
+        else:
+            ok = got == want
+        check(ok, f"{what}: {key} differs")
+
+
+def cluster_oracle(pts: dict, name: str, res) -> None:
+    """One query's result against plain numpy over the points."""
+    keep = {"topn": pts["region"] == 3,
+            "fallback_ne": pts["region"] != 3}.get(name, slice(None))
+    svc = pts["svc"][keep]
+    count = np.bincount(svc, minlength=N_SVC).astype(np.float64)
+    ids = [int(g[0][4:]) for g in res.groups]
+    if name in ("topn", "fallback_ne"):
+        mean = np.bincount(svc, weights=pts["latency"][keep], minlength=N_SVC)
+        mean = np.where(count > 0, mean / np.maximum(count, 1), -np.inf)
+        check(ids == list(np.argsort(-mean, kind="stable")[:10]),
+              f"cluster {name}: TOP 10 differs from numpy")
+        check(np.allclose(res.values["mean(latency)"], mean[ids], rtol=RTOL, atol=0.0),
+              f"cluster {name}: means vs numpy")
+        return
+    check(sorted(ids) == list(np.nonzero(count)[0]), f"cluster {name}: group set")
+    check(res.values["count"] == list(count[ids]), f"cluster {name}: counts vs numpy")
+    calls = pts["calls"][keep]
+    if name == "percentile":
+        lat = pts["latency"][keep]
+        lat32 = lat.astype(np.float32)
+        width = (float(lat32.max()) - float(lat32.min())) / 512
+        order = np.lexsort((lat, svc))
+        bounds = np.searchsorted(svc[order], np.arange(N_SVC + 1))
+        lat_sorted = lat[order]
+        for gid, row in zip(ids, res.values["percentile(latency)"]):
+            vals = lat_sorted[bounds[gid]: bounds[gid + 1]]
+            for q, e in zip((0.5, 0.99), row):
+                k = max(int(np.ceil(q * len(vals))), 1) - 1
+                check(abs(e - vals[k]) <= width + 1e-4,
+                      f"cluster percentile: p{q} of svc {gid} = {e}, order "
+                      f"statistic {vals[k]}")
+        return
+    if name == "count":
+        want = count
+    elif name == "sum":
+        want = np.bincount(svc, weights=calls, minlength=N_SVC)
+    else:
+        want = np.full(N_SVC, np.inf if name == "min" else -np.inf)
+        (np.minimum if name == "min" else np.maximum).at(want, svc, calls)
+    check(res.values[f"{name}(calls)"] == list(want[ids]),
+          f"cluster {name}: {name}(calls) vs numpy")
+
+
+def device_split(fn) -> tuple:
+    """Run fn once under torch.profiler: -> (device busy ms, of which
+    host-to-device copies, host wall ms, the five busiest keys)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = h2d = 0.0
+    keys = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0:
+            busy += us / 1e3
+            keys.append((us / 1e3, e.key[:60]))
+            if "HtoD" in e.key:
+                h2d += us / 1e3
+    return busy, h2d, wall, sorted(keys, reverse=True)[:5]
+
+
+def cluster_path(hk, n_points: int, device: str, root: str) -> dict:
+    """Two data nodes on `device` and a liaison over LocalTransport:
+    per-point writes through ``Liaison.write_measure``, then each BydbQL
+    query through ``Liaison.query_measure`` three times on the one-slot
+    mesh of the card and on a 4 x 2 mesh of 8 slots on it, and once
+    through the host combine of the scatter partials; -> the launch
+    counts of those runs.  Afterwards (not counted): a profiled run for
+    the idle share, the same 4 x 2 mesh on CPU slots over the same data
+    nodes, and the numpy oracle."""
+    import torch
+
+    from banyandb_tpu_torch import bydbql
+    from banyandb_tpu_torch.api import DataPointValue, WriteRequest
+    from banyandb_tpu_torch.cluster import DataNode, Liaison, NodeInfo
+    from banyandb_tpu_torch.cluster.rpc import LocalTransport
+    from banyandb_tpu_torch.obs.tracer import Tracer
+    from banyandb_tpu_torch.parallel import make_mesh
+
+    pts = make_points(n_points, SEED + 2)
+    transport, infos, nodes = LocalTransport(), [], []
+    for i in range(3):  # two data nodes, then the liaison's registry
+        reg = engine_registry(os.path.join(root, f"n{i}"), shard_num=4)
+        if i < 2:
+            dn = DataNode(f"data-{i}", reg, os.path.join(root, f"n{i}", "data"),
+                          device=device)
+            nodes.append(dn)
+            infos.append(NodeInfo(dn.name, transport.register(dn.name, dn.bus)))
+    liaison = Liaison(reg, transport, infos)
+    svc_vals = ["svc-%04d" % i for i in range(N_SVC)]
+    region_vals = ["r%d" % i for i in range(N_REGION)]
+    build_s = write_s = 0.0
+    for lo in range(0, n_points, CLUSTER_BATCH):
+        hi = min(n_points, lo + CLUSTER_BATCH)
+        t0 = time.perf_counter()
+        ts, sv, rg = (pts[k][lo:hi].tolist() for k in ("ts", "svc", "region"))
+        lat, calls = pts["latency"][lo:hi].tolist(), pts["calls"][lo:hi].tolist()
+        batch = tuple(
+            DataPointValue(ts[k], {"svc": svc_vals[sv[k]], "region": region_vals[rg[k]]},
+                           {"latency": lat[k], "calls": int(calls[k])}, version=1)
+            for k in range(hi - lo)
+        )
+        t1 = time.perf_counter()
+        check(liaison.write_measure(WriteRequest(ENGINE_GROUP, "service_resp_time", batch))
+              == hi - lo, "cluster: write not accepted")
+        write_s += time.perf_counter() - t1
+        build_s += t1 - t0
+    t0 = time.perf_counter()
+    for dn in nodes:
+        dn.measure.flush()
+    log(f"  wrote {n_points} points through Liaison.write_measure in "
+        f"{write_s:.3f} s ({n_points / write_s:.0f} points/s; building the "
+        f"DataPointValues {build_s:.3f} s apart), flushed both nodes in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    engines = {dn.name: dn.measure for dn in nodes}
+    meshes = {
+        "1x1": make_mesh(1, 1, devices=[device]),
+        "4x2": make_mesh(4, 2, devices=[device] * 8),
+    }
+    queries = cluster_queries(n_points)
+    reqs = {name: bydbql.parse(ql) for name, (ql, _m) in queries.items()}
+    card = {}
+    hk.reset_launches()
+    for name, req in reqs.items():
+        on_mesh = queries[name][1]
+        t0 = time.perf_counter()
+        host = liaison.query_measure(req)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        card[name] = {"host": host}
+        log(f"  cluster {name}: {queries[name][0]}")
+        log(f"  cluster {name} host combine wall ms {host_ms!r}")
+        for mname, mesh in meshes.items():
+            liaison.enable_mesh_fastpath(mesh, engines)
+            runs = []
+            for _ in range(3):
+                tr = Tracer("cluster")
+                before = hk.LAUNCHES["fused_group_multi"]
+                t0 = time.perf_counter()
+                res = liaison.query_measure(req, tracer=tr)
+                runs.append((res, (time.perf_counter() - t0) * 1e3, tr.finish(),
+                             dict(liaison.mesh_exec.last_stats),
+                             hk.LAUNCHES["fused_group_multi"] - before))
+            check(liaison.mesh_exec.executions == (3 if on_mesh else 0),
+                  f"cluster {name} on {mname}: {liaison.mesh_exec.executions} "
+                  "mesh executions in 3 runs")
+            del liaison.mesh_exec
+            for res, *_rest in runs[1:]:
+                cluster_same(res, runs[0][0], f"cluster {name} {mname}: repeat run")
+            spans = [find_span(r[2], "mesh_execute") for r in runs]
+            log(f"  cluster {name} mesh {mname}: wall ms {[r[1] for r in runs]!r}; "
+                f"mesh_execute span ms {[sp and sp['duration_ms'] for sp in spans]!r}; "
+                f"fused_group_multi launches per run {[r[4] for r in runs]!r}")
+            if on_mesh:
+                st = runs[-1][3]
+                log(f"  cluster {name} mesh {mname} last run: gather {st['gather_ms']!r} "
+                    f"ms, pack + H2D {st['pack_ms']!r} ms, device steps to host "
+                    f"{st['device_ms']!r} ms, {st['passes']} pass(es) of "
+                    f"{st['num_chunks']} chunk(s) a slot, H2D bytes {st['h2d_bytes']}")
+            card[name][mname] = runs[0][0]
+    launches = dict(hk.LAUNCHES)
+    log(f"  kernel launches over the cluster's card runs: {launches}")
+
+    if device == "cuda":
+        for name, req in reqs.items():
+            liaison.enable_mesh_fastpath(meshes["4x2"], engines)
+            busy, h2d, wall, top = device_split(lambda: liaison.query_measure(req))
+            del liaison.mesh_exec
+            log(f"  cluster {name} mesh 4x2 profile: device busy {busy!r} ms (H2D "
+                f"{h2d!r}) of {wall!r} ms wall, idle share {1 - busy / wall!r}; "
+                f"top: {top!r}")
+    cpu_mesh = make_mesh(4, 2, devices=["cpu"] * 8)
+    try:
+        for name, req in reqs.items():
+            liaison.enable_mesh_fastpath(cpu_mesh, engines)
+            t0 = time.perf_counter()
+            cres = liaison.query_measure(req)
+            cms = (time.perf_counter() - t0) * 1e3
+            del liaison.mesh_exec
+            got = card[name]
+            cluster_same(got["4x2"], cres, f"cluster {name}: card 4x2 vs cpu 4x2")
+            cluster_same(got["1x1"], got["4x2"], f"cluster {name}: 1x1 vs 4x2")
+            cluster_same(got["4x2"], got["host"], f"cluster {name}: mesh vs host combine",
+                         host=queries[name][1])
+            for res in got.values():
+                cluster_oracle(pts, name, res)
+            log(f"  ok  cluster {name}: meshes 1x1 and 4x2 on the card, 4x2 on CPU "
+                f"slots ({cms:.1f} ms) and the host combine agree, and the numpy "
+                "oracle holds")
+    finally:
+        for dn in nodes:
+            dn.measure.close()
+            dn.stream.close()
+            dn.trace.close()
+    return launches
+
 
 def main() -> int:
     try:
@@ -1424,6 +1691,11 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
+
+    def phase(msg: str) -> None:
+        log(f"{msg} (at {time.perf_counter() - t_start:.1f} s)")
+
     card = card_line()
     log(f"[1] card: {card}")
     log(
@@ -1431,31 +1703,35 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}"
     )
     build_s = hk.build()
-    log(f"[2] build: {build_s:.3f} s")
+    phase(f"[2] build: {build_s:.3f} s")
     for line in hk.build_log.splitlines():
         if "registers" in line or "bytes stack" in line or line.startswith("=="):
             log(f"    {line.strip()}")
-    log("[3] kernels against their plain versions")
+    phase("[3] kernels against their plain versions")
     rows = kernel_phase(hk)
     paths = {}
     with tempfile.TemporaryDirectory(prefix="bydb-smoke-") as root:
-        log(f"[4] executor path: {N_POINTS} points")
+        phase(f"[4] executor path: {N_POINTS} points")
         paths["executor"], parts = main_path(
             hk, N_POINTS, "cuda", os.path.join(root, "parts")
         )
-        log("[5] decode path")
+        phase("[5] decode path")
         paths["decode"] = decode_path(hk, parts[0], "cuda")
     with tempfile.TemporaryDirectory(prefix="bydb-smoke-engine-") as root:
-        log(f"[6] engine path: {N_POINTS} points through MeasureEngine and BydbQL")
+        phase(f"[6] engine path: {N_POINTS} points through MeasureEngine and BydbQL")
         paths["engine"] = engine_path(hk, N_POINTS, "cuda", root)
-    log("[7] determinism of the scatter and sort group reduce")
+    phase("[7] determinism of the scatter and sort group reduce")
     determinism_phase()
     with tempfile.TemporaryDirectory(prefix="bydb-smoke-stream-") as root:
-        log(f"[8] stream path: {STREAM_N} log elements through StreamEngine and BydbQL")
+        phase(f"[8] stream path: {STREAM_N} log elements through StreamEngine and BydbQL")
         paths["stream"] = stream_path(hk, STREAM_N, "cuda", root)
     with tempfile.TemporaryDirectory(prefix="bydb-smoke-models-") as root:
-        log("[9] host-only models: TraceEngine and PropertyEngine")
+        phase("[9] host-only models: TraceEngine and PropertyEngine")
         host_models_phase(root)
+    with tempfile.TemporaryDirectory(prefix="bydb-smoke-cluster-") as root:
+        phase(f"[10] cluster path: {CLUSTER_N} points through a liaison and two data nodes")
+        paths["cluster"] = cluster_path(hk, CLUSTER_N, "cuda", root)
+    phase("[11] all phases done")
     for path, kernels in PATH_KERNELS.items():
         for k in kernels:
             check(paths[path][k] > 0, f"{k}: not launched on the {path} path")

@@ -324,3 +324,179 @@ def test_stream_engine_on_card_equals_cpu(dev, tmp_path):
         assert card.last_scan_stats == cpu.last_scan_stats
     card.close()
     cpu.close()
+
+
+def _mesh_rows(rng, sizes):
+    return [
+        {
+            "tags": {"svc": rng.integers(0, 1024, n).astype(np.int32),
+                     "region": rng.integers(0, 8, n).astype(np.int32)},
+            "fields": {"lat": rng.gamma(2.0, 40.0, n).astype(np.float32),
+                       "calls": rng.integers(0, 50, n).astype(np.float32)},
+        }
+        for n in sizes
+    ]
+
+
+def _assert_card_equals_cpu(card, cpu, plan):
+    def np_(t):
+        return t.cpu().numpy()
+
+    for key in ("count", "hist", "top_idx"):
+        if key in cpu:
+            np.testing.assert_array_equal(np_(card[key]), np_(cpu[key]), err_msg=key)
+    for f in plan.fields:
+        np.testing.assert_array_equal(np_(card["mins"][f]), np_(cpu["mins"][f]))
+        np.testing.assert_array_equal(np_(card["maxs"][f]), np_(cpu["maxs"][f]))
+        if f == "calls":
+            np.testing.assert_array_equal(np_(card["sums"][f]), np_(cpu["sums"][f]))
+        else:
+            np.testing.assert_allclose(np_(card["sums"][f]), np_(cpu["sums"][f]), rtol=RTOL)
+
+
+def _same_bits(a, b):
+    if isinstance(a, dict):
+        return all(_same_bits(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("num_chunks", [0, 1, 4], ids=["legacy", "fused1", "fused4"])
+def test_mesh_steps_on_card_slots_equal_cpu_slots(dev, num_chunks):
+    """The legacy and the fused mesh step on 8 slots of the card equal
+    the same step on 8 CPU slots, with the same bits on a second run,
+    launching fused_group_multi once a slot and chunk."""
+    from banyandb_tpu_torch.parallel import dist_exec, make_mesh
+    from banyandb_tpu_torch.query import fused_exec
+
+    rng = np.random.default_rng(40 + num_chunks)
+    nrows = 1 << 12
+    width = max(num_chunks, 1) * nrows
+    per_shard = _mesh_rows(rng, [width, 0, 1, width - 5, 777, width // 2, 3, width])
+    plan = dist_exec.DistPlan(
+        tags_code=("region", "svc"), fields=("calls", "lat"), group_tags=("svc",),
+        radices=(1024,), num_groups=1024, eq_preds=("region",), topn=10,
+        want_hist="lat",
+    )
+    outs = {}
+    for name, devices in (("card", [dev] * 8), ("cpu", ["cpu"] * 8)):
+        mesh = make_mesh(4, 2, devices=devices)
+        chunks = dist_exec.stack_shard_chunks(
+            mesh, per_shard, plan.tags_code, plan.fields, width
+        )
+
+        def run():
+            kw = dict(pred_codes={"region": 3}, hist_lo=0.0, hist_span=700.0)
+            if num_chunks:
+                return fused_exec.fused_distributed_aggregate(
+                    mesh, plan, num_chunks, chunks, **kw
+                )
+            return dist_exec.distributed_aggregate(mesh, plan, chunks, **kw)
+
+        before = hk.LAUNCHES["fused_group_multi"]
+        outs[name] = run()
+        launched = hk.LAUNCHES["fused_group_multi"] - before
+        assert launched == (8 * max(num_chunks, 1) if name == "card" else 0)
+        assert _same_bits(outs[name], run()), name
+    assert outs["card"]["count"].device.type == "cuda"
+    _assert_card_equals_cpu(outs["card"], outs["cpu"], plan)
+
+
+def test_topk_groups_ties_on_card(dev):
+    from banyandb_tpu_torch import ops
+
+    rng = np.random.default_rng(5)
+    metric = torch.from_numpy(rng.integers(0, 4, 5000).astype(np.float32))
+    nonempty = torch.from_numpy(rng.random(5000) < 0.8)
+    for descending in (True, False):
+        for n in (1, 10, 1000, 5000):
+            cv, ci = ops.topk_groups(metric, nonempty, n, descending=descending)
+            gv, gi = ops.topk_groups(metric.to(dev), nonempty.to(dev), n,
+                                     descending=descending)
+            assert torch.equal(gi.cpu(), ci) and torch.equal(gv.cpu(), cv)
+
+
+def test_two_node_cluster_on_card_equals_cpu(dev, tmp_path):
+    """A 2-node cluster whose data nodes run on the card answers the
+    measure fixture cases like one whose nodes run on the CPU, over the
+    scatter partials and over the mesh of 8 card slots."""
+    import json
+    from pathlib import Path
+
+    from banyandb_tpu_torch import bydbql
+    from banyandb_tpu_torch.api import (
+        Catalog, DataPointValue, Entity, FieldSpec, FieldType, Group, Measure,
+        ResourceOpts, SchemaRegistry, TagSpec, TagType, WriteRequest,
+    )
+    from banyandb_tpu_torch.cluster import DataNode, Liaison, NodeInfo
+    from banyandb_tpu_torch.cluster.rpc import LocalTransport
+    from banyandb_tpu_torch.parallel import make_mesh
+
+    t0, n = 1_700_000_000_000, 4000
+    measure = Measure(
+        group="sw", name="cpm",
+        tags=(TagSpec("svc", TagType.STRING), TagSpec("region", TagType.STRING),
+              TagSpec("status", TagType.INT)),
+        fields=(FieldSpec("value", FieldType.INT),), entity=Entity(("svc",)),
+    )
+    points = tuple(
+        DataPointValue(t0 + i, {"svc": f"s{i % 10}", "region": f"r{i % 3}",
+                                "status": (200, 404, 500)[i % 3]},
+                       {"value": i % 997}, version=1)
+        for i in range(n)
+    )
+    clusters = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        transport, infos, nodes = LocalTransport(), [], []
+        for i in range(3):
+            reg = SchemaRegistry(tmp_path / name / f"n{i}")
+            reg.create_group(Group("sw", Catalog.MEASURE, ResourceOpts(shard_num=4)))
+            reg.create_measure(measure)
+            if i < 2:
+                dn = DataNode(f"d{i}", reg, tmp_path / name / f"n{i}" / "data",
+                              device=device)
+                nodes.append(dn)
+                infos.append(NodeInfo(dn.name, transport.register(dn.name, dn.bus)))
+        liaison = Liaison(reg, transport, infos)
+        liaison.write_measure(WriteRequest("sw", "cpm", points))
+        for dn in nodes:
+            dn.measure.flush()
+        clusters[name] = (liaison, nodes)
+    cases = json.loads(
+        (Path(__file__).parent / "cases" / "measure_cases.json").read_text()
+    )["cases"]
+    before = hk.LAUNCHES["fused_group_multi"]
+    try:
+        for case in cases:
+            ql = (case["ql"].replace("{T0_500}", str(t0 + 500))
+                  .replace("{T0_1500}", str(t0 + 1500))
+                  .replace("{T0}", str(t0)).replace("{T1}", str(t0 + n)))
+            req = bydbql.parse(ql)
+            card = clusters["card"][0].query_measure(req)
+            cpu = clusters["cpu"][0].query_measure(req)
+            # integer-valued data: every value is exact
+            assert (card.groups, card.values, card.data_points) == (
+                cpu.groups, cpu.values, cpu.data_points), case["name"]
+            if case["name"] in ("sum_by_service", "mean_filtered_region",
+                                "min_max_by_region"):
+                liaison, nodes = clusters["card"]
+                liaison.enable_mesh_fastpath(
+                    make_mesh(4, 2, devices=[dev] * 8),
+                    {dn.name: dn.measure for dn in nodes},
+                )
+                try:
+                    mesh = liaison.query_measure(req)
+                    assert liaison.mesh_exec.executions == 1
+                    assert liaison.mesh_exec.last_stats["h2d_bytes"] > 0
+                finally:
+                    del liaison.mesh_exec
+                assert sorted(mesh.values) == sorted(cpu.values)
+                for key in cpu.values:
+                    assert dict(zip(mesh.groups, mesh.values[key])) == dict(
+                        zip(cpu.groups, cpu.values[key])), (case["name"], key)
+        # the card nodes' scatter partials and the card mesh took the
+        # kernel (a repeated scan signature is a partials-cache hit)
+        assert hk.LAUNCHES["fused_group_multi"] > before
+    finally:
+        for _liaison, nodes in clusters.values():
+            for dn in nodes:
+                dn.measure.close(), dn.stream.close(), dn.trace.close()

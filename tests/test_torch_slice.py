@@ -303,8 +303,45 @@ _ISOLATION = textwrap.dedent(
         assert p2.tags == {"role": "data", "zone": "z"} and p2.mod_revision > p1.mod_revision
         assert [p.id for p in pe.query("p", "node", tag_filters={"zone": "z"})] == ["n1"]
         pe.close()
+
+    # the in-process cluster: two data nodes and a liaison over
+    # LocalTransport, a scatter query and the mesh fast path
+    from banyandb_tpu_torch.api import DataPointValue, WriteRequest
+    from banyandb_tpu_torch.cluster import DataNode, Liaison, NodeInfo
+    from banyandb_tpu_torch.cluster.rpc import LocalTransport
+    from banyandb_tpu_torch.parallel import make_mesh
+    import banyandb_tpu_torch.admin.diagnostics, banyandb_tpu_torch.admin.inspect
+    import banyandb_tpu_torch.cluster.faults, banyandb_tpu_torch.cluster.handoff
+    import banyandb_tpu_torch.cluster.schema_gossip, banyandb_tpu_torch.parallel.mesh_query
+
+    with tempfile.TemporaryDirectory() as root:
+        transport, infos, nodes = LocalTransport(), [], []
+        for i in range(3):
+            reg = SchemaRegistry(Path(root) / f"n{i}")
+            reg.create_group(Group("g", Catalog.MEASURE, ResourceOpts(shard_num=4)))
+            reg.create_measure(m)
+            if i < 2:
+                dn = DataNode(f"d{i}", reg, Path(root) / f"n{i}" / "data", device="cpu")
+                nodes.append(dn)
+                infos.append(NodeInfo(dn.name, transport.register(dn.name, dn.bus)))
+        liaison = Liaison(reg, transport, infos)
+        liaison.write_measure(WriteRequest("g", "m", tuple(
+            DataPointValue(i, {"svc": "abcdef"[i % 6]}, {"v": 1}) for i in range(600))))
+        req = bydbql.parse(
+            "SELECT count(v) FROM MEASURE m IN g TIME BETWEEN 0 AND 600 GROUP BY svc")
+        host = liaison.query_measure(req)
+        liaison.enable_mesh_fastpath(make_mesh(4, 2, devices=["cpu"] * 8),
+                                     {dn.name: dn.measure for dn in nodes})
+        mesh = liaison.query_measure(req)
+        assert liaison.mesh_exec.executions == 1
+        assert (sorted(zip(mesh.groups, mesh.values["count"]))
+                == sorted(zip(host.groups, host.values["count"]))
+                == [((s,), 100.0) for s in "abcdef"]), (host, mesh)
+        for dn in nodes:
+            dn.measure.close(), dn.stream.close(), dn.trace.close()
     bad = sorted(k for k in sys.modules
-                 if k == "jax" or k.startswith(("jax.", "banyandb_tpu.")))
+                 if k in ("jax", "grpc") or k.startswith(
+                     ("jax.", "banyandb_tpu.", "grpc.", "google.protobuf")))
     assert not bad, bad
     print("isolated")
     """
@@ -325,7 +362,8 @@ def test_port_imports_neither_jax_nor_reference():
         for i, line in enumerate(path.read_text().splitlines(), 1):
             s = line.strip()
             if s.startswith(("import ", "from ")) and (
-                s.split()[1].split(".")[0] in ("jax", "jaxlib", "banyandb_tpu")
+                s.split()[1].split(".")[0] in ("jax", "jaxlib", "banyandb_tpu", "grpc")
+                or s.split()[1].startswith("google.protobuf")
             ):
                 offenders.append(f"{path.relative_to(REPO)}:{i}: {s}")
     assert not offenders, offenders
