@@ -1,6 +1,7 @@
 """Device kernel substrate on torch tensors: the counterpart of
 banyandb_tpu.ops for the measure aggregate path."""
 
+from banyandb_tpu_torch.ops.blocks import MAX_ROWS, ColumnBatch, pad_rows_bucket
 from banyandb_tpu_torch.ops.dedup import latest_by_version
 from banyandb_tpu_torch.ops.decode import (
     decode_chunk,

@@ -133,11 +133,12 @@ def decode_chunk(chunk: dict) -> dict:
 
 def _maybe_kernel_widen(vals):
     """Route the i8/i16 widen through the Hopper kernel
-    (ops.hopper_kernels.widen_narrow) for a 1-D CUDA tensor whose length
-    is a TILE multiple — the staged executor's chunks; everything else
-    (CPU tensors, the fused executor's [C, nrows] batches) passes
-    through to the plain conversion of its caller."""
-    if not vals.is_cuda or vals.dim() != 1 or vals.dtype not in _NARROW:
+    (ops.hopper_kernels.widen_narrow) for a 1-D tensor whose length is a
+    TILE multiple — the staged executor's chunks; the fused executor's
+    [C, nrows] batches pass through to the plain conversion of the
+    caller.  The route does not depend on the device (a CPU tensor takes
+    the wrapper's plain version), so a CPU run makes the card's calls."""
+    if vals.dim() != 1 or vals.dtype not in _NARROW:
         return vals
     if vals.shape[0] % hopper_kernels.TILE != 0:
         return vals

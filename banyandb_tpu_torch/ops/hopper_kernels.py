@@ -14,9 +14,23 @@ here:
   launches its kernel and nowhere else.
 
 The sources are built at the first CUDA use, with ``nvcc`` for sm_90a,
-into one shared library with a plain C interface under ``_build/``
-(one ``nvcc -c`` per source, all started together, then one link), and
-bound with ``ctypes``.  Each C entry returns ``cudaGetLastError()``.
+into one shared library with a plain C interface (one ``nvcc -c`` per
+source, all started together, then one link), and bound with
+``ctypes``.  Each C entry returns ``cudaGetLastError()``.  The library
+lives in the build cache's directory (``utils/compile_cache``: the
+explicit path, ``BYDB_COMPILE_CACHE_DIR`` or the caller's default),
+else under the package's ``_build/``; a library already there is
+loaded, not rebuilt.
+
+Each wrapper checks its inputs and calls its op in the ``bydb``
+``torch.library`` namespace: the op's CPU implementation is the plain
+version, its CUDA implementation launches the kernel, and its fake
+implementation computes only the output shapes — the kernel audit
+(``lint/kernel``) traces the executors on fake tensors and sees each
+kernel as one op; a real tensor never takes that branch.  The ops are
+bound with the low-level ``torch.library.Library`` API: the first call
+of a ``torch.library.custom_op`` imports some 800 modules (about 2 s on
+a CPU), which every cold query would pay.
 
 ``fused_group_multi`` replaces pallas_kernels.py::fused_group_multi:
 one pass over the rows (fixed row blocks of 2048-row tiles, each
@@ -75,6 +89,14 @@ LAUNCHES = {
 
 _lib = None
 _lib_lock = threading.Lock()
+# the ops' namespace; its registrations live as long as this object
+_ops = torch.library.Library("bydb", "DEF")
+_ops.define(
+    "fused_group_multi(Tensor codes, Tensor pred_mask, Tensor values, "
+    "Tensor valid, int num_groups) -> (Tensor, Tensor)"
+)
+_ops.define("widen_narrow(Tensor x) -> Tensor")
+_ops.define("prefix_sum_narrow(Tensor x) -> Tensor")
 # nvcc's output of the build that loaded (ptxas register/smem report)
 build_log = ""
 
@@ -92,20 +114,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def build_dir() -> Path:
+    """The build cache's directory when one is enabled, else BUILD_DIR."""
+    from banyandb_tpu_torch.utils import compile_cache
+
+    d = compile_cache.active_dir()
+    return Path(d) if d else BUILD_DIR
+
+
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES:
         h.update((CSRC_DIR / src).read_bytes())
-    return BUILD_DIR / f"libbydb_hopper-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libbydb_hopper-{h.hexdigest()[:16]}.so"
 
 
 def _compile(so: Path) -> str:
     """nvcc every source to an object in parallel, link one .so, and
     move it into place atomically.  -> nvcc's combined output."""
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     log = []
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
         objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
         procs = [
             subprocess.Popen(
@@ -139,17 +169,23 @@ def _compile(so: Path) -> str:
 def build() -> float:
     """Build (when the sources changed) and load the kernel library.
     -> seconds spent.  Called by the first CUDA launch; raises when the
-    build or the load fails."""
+    build or the load fails.  The build cache counts a build as a miss
+    and the load of a library already built as a hit."""
     global _lib, build_log
     if _lib is not None:
         return 0.0
+    from banyandb_tpu_torch.utils import compile_cache
+
     t0 = time.perf_counter()
     with _lib_lock:
         if _lib is not None:
             return 0.0
         so = _library_path()
-        if not so.exists():
+        hit = so.exists()
+        if not hit:
             build_log = _compile(so)
+            compile_cache.note_build(time.perf_counter() - t0)
+        t1 = time.perf_counter()
         lib = ctypes.CDLL(str(so))
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.bydb_fused_group_multi.restype = i
@@ -161,6 +197,7 @@ def build() -> float:
         lib.bydb_prefix_sum_narrow.restype = i
         lib.bydb_prefix_sum_narrow.argtypes = [p, ll, p, ctypes.c_uint, p, i, p]
         _lib = lib
+        compile_cache.note_load(time.perf_counter() - t1, hit)
     return time.perf_counter() - t0
 
 
@@ -261,8 +298,28 @@ def fused_group_multi(codes, pred_mask, values, valid, *, num_groups: int):
     _expect(pred_mask, "pred_mask", torch.bool, (n,), dev)
     _expect(values, "values", torch.float32, (nf, n), dev)
     _expect(valid, "valid", torch.bool, (n,), dev)
-    if dev.type != "cuda":
-        return fused_group_multi_plain(codes, pred_mask, values, valid, num_groups)
+    return torch.ops.bydb.fused_group_multi(
+        codes, pred_mask, values, valid, num_groups
+    )
+
+
+def _fused_group_multi_cpu(codes, pred_mask, values, valid, num_groups):
+    count, sums = fused_group_multi_plain(codes, pred_mask, values, valid, num_groups)
+    return count.clone(), sums  # one op's outputs do not alias
+
+
+@torch.library.register_fake("bydb::fused_group_multi")
+def _(codes, pred_mask, values, valid, num_groups):
+    return (
+        codes.new_empty((num_groups,), dtype=torch.float32),
+        codes.new_empty((values.shape[0], num_groups), dtype=torch.float32),
+    )
+
+
+def _fused_group_multi_cuda(codes, pred_mask, values, valid, num_groups):
+    n = codes.shape[0]
+    nf = values.shape[0]
+    dev = codes.device
     count = torch.empty(num_groups, dtype=torch.float32, device=dev)
     sums = torch.empty((nf, num_groups), dtype=torch.float32, device=dev)
     if n == 0:
@@ -297,6 +354,10 @@ def fused_group_multi(codes, pred_mask, values, valid, *, num_groups: int):
     return count, sums
 
 
+_ops.impl("fused_group_multi", _fused_group_multi_cpu, "CPU")
+_ops.impl("fused_group_multi", _fused_group_multi_cuda, "CUDA")
+
+
 def fused_group_sum(codes, pred_mask, values, valid, *, num_groups: int):
     """Single-field wrapper around fused_group_multi.
 
@@ -326,8 +387,11 @@ def widen_narrow(x):
     if x.dtype not in (torch.int8, torch.int16):
         raise TypeError(f"widen_narrow takes i8/i16, got {x.dtype}")
     _expect(x, "x", x.dtype, (n,), x.device)
-    if x.device.type != "cuda":
-        return widen_narrow_plain(x)
+    return torch.ops.bydb.widen_narrow(x)
+
+
+def _widen_narrow_cuda(x):
+    n = x.shape[0]
     if x.data_ptr() % 16:
         raise ValueError("widen_narrow: input not 16-byte aligned")
     out = torch.empty(n, dtype=torch.int32, device=x.device)
@@ -341,6 +405,15 @@ def widen_narrow(x):
     _check_rc(rc, "widen_narrow")
     LAUNCHES["widen_narrow"] += 1
     return out
+
+
+_ops.impl("widen_narrow", widen_narrow_plain, "CPU")
+_ops.impl("widen_narrow", _widen_narrow_cuda, "CUDA")
+
+
+@torch.library.register_fake("bydb::widen_narrow")
+def _(x):
+    return x.new_empty(x.shape, dtype=torch.int32)
 
 
 # -- prefix_sum_narrow --------------------------------------------------------
@@ -388,8 +461,11 @@ def prefix_sum_narrow(x):
     if n % TILE:
         raise ValueError(f"N={n} must be a multiple of {TILE}")
     _expect(x, "x", torch.int32, (n,), x.device)
-    if x.device.type != "cuda":
-        return prefix_sum_narrow_plain(x)
+    return torch.ops.bydb.prefix_sum_narrow(x)
+
+
+def _prefix_sum_narrow_cuda(x):
+    n = x.shape[0]
     if x.data_ptr() % 16:
         raise ValueError("prefix_sum_narrow: input not 16-byte aligned")
     out = torch.empty(n, dtype=torch.int32, device=x.device)
@@ -405,3 +481,12 @@ def prefix_sum_narrow(x):
     _check_rc(rc, "prefix_sum_narrow")
     LAUNCHES["prefix_sum_narrow"] += 1
     return out
+
+
+_ops.impl("prefix_sum_narrow", prefix_sum_narrow_plain, "CPU")
+_ops.impl("prefix_sum_narrow", _prefix_sum_narrow_cuda, "CUDA")
+
+
+@torch.library.register_fake("bydb::prefix_sum_narrow")
+def _(x):
+    return x.new_empty(x.shape, dtype=torch.int32)

@@ -85,6 +85,15 @@ def slot_chunks(plan: DistPlan, chunks: dict) -> list[dict]:
     ]
 
 
+def _combine(values: list, op, dev):
+    """One cross-slot combine (a psum/pmin/pmax of the JAX step): the
+    slots' tensors folded with `op` in slot order on `dev`."""
+    acc = values[0]
+    for v in values[1:]:
+        acc = op(acc, v.to(dev, non_blocking=True))
+    return acc
+
+
 def reduce_slots(plan: DistPlan, parts: list[dict]) -> dict:
     """The collective: each slot's partials {count, sums, mins, maxs[,
     hist]} summed (amin/amax for the extremes) in slot order on the
@@ -92,10 +101,7 @@ def reduce_slots(plan: DistPlan, parts: list[dict]) -> dict:
     dev = parts[0]["count"].device
 
     def fold(get, op):
-        acc = get(parts[0])
-        for p in parts[1:]:
-            acc = op(acc, get(p).to(dev, non_blocking=True))
-        return acc
+        return _combine([get(p) for p in parts], op, dev)
 
     out = {
         "count": fold(lambda p: p["count"], torch.add),

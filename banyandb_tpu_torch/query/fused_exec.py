@@ -36,11 +36,8 @@ import numpy as np
 import torch
 
 from banyandb_tpu_torch.backend import resolve_device
-from banyandb_tpu_torch.query.measure_exec import (
-    PlanSpec,
-    _kernel_body,
-    device_get,
-)
+from banyandb_tpu_torch.query import measure_exec
+from banyandb_tpu_torch.query.measure_exec import PlanSpec, _kernel_body
 from banyandb_tpu_torch.utils.envflag import env_flag, env_int
 
 
@@ -265,7 +262,7 @@ def _stacked_chunks(
         prefetched([timed(fn) for fn in thunks], name="bydb-fused-pad"),
     ):
         t0 = time.perf_counter()
-        dev = torch.from_numpy(arr).to(device)
+        dev = measure_exec.ship(arr, device)
         if pad_ship_s is not None:
             pad_ship_s.append(time.perf_counter() - t0)
         if path in counted:
@@ -312,8 +309,6 @@ def run_fused(
     back.  ``min_bucket`` (planner hint) rounds the chunk-count bucket
     up — see ``_resolve_bucket``.
     """
-    from banyandb_tpu_torch.ops import decode as ops_decode
-
     # function-local import, as in the JAX executor
     from banyandb_tpu_torch.query.precompile import default_registry
 
@@ -347,25 +342,45 @@ def run_fused(
     else:
         dev_chunks = _build()
 
-    body = _kernel_body(spec)
+    kernel = _build_kernel(FusedSpec(plan=spec, num_chunks=num_chunks))
     t0 = time.perf_counter()
-    # decode the whole [C, nrows] batch once (the remap LUTs are
-    # per-batch), then run the per-chunk body over the real chunks
-    decoded = ops_decode.decode_chunk(dev_chunks)
-    stacked = _stack_trees(
-        [
-            body(_tree_map(lambda a, k=k: a[k], decoded), pred_vals, hist_lo, hist_span)
-            for k in range(len(chunk_spans))
-        ]
+    stacked = kernel(
+        dev_chunks, pred_vals, hist_lo, hist_span, n_real=len(chunk_spans)
     )
     # THE result boundary of the fused plan: the whole part-batch's
     # stacked partials move in one batched transfer
-    moved = device_get(stacked)
+    moved = measure_exec.device_get(stacked)
     device_s = time.perf_counter() - t0
     chunks_out = [
         _tree_map(lambda a, k=k: a[k], moved) for k in range(len(chunk_spans))
     ]
     return chunks_out, device_s, ("built" if built else "hit")
+
+
+def _build_kernel(fspec: FusedSpec):
+    """The fused part-batch function of `fspec`: stacked ``[C, nrows]``
+    chunks (either ship form) -> stacked ``[n_real, ...]`` per-chunk
+    partials, on the chunks' device.  The batch is decoded once (the
+    remap LUTs are per-batch), then the per-chunk body runs over the
+    first ``n_real`` chunks (default: all ``num_chunks``; padding chunks
+    beyond the real ones are fully invalid and skipped)."""
+    from banyandb_tpu_torch.ops import decode as ops_decode
+
+    body = _kernel_body(fspec.plan)
+
+    def kernel(chunks: dict, pred_vals: dict, hist_lo, hist_span, n_real=None):
+        decoded = ops_decode.decode_chunk(chunks)
+        return _stack_trees(
+            [
+                body(
+                    _tree_map(lambda a, k=k: a[k], decoded),
+                    pred_vals, hist_lo, hist_span,
+                )
+                for k in range(fspec.num_chunks if n_real is None else n_real)
+            ]
+        )
+
+    return kernel
 
 
 def _tree_map(fn, tree):

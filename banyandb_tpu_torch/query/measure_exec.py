@@ -253,6 +253,14 @@ def _build_kernel(spec: PlanSpec):
     return kernel
 
 
+def ship(a, device) -> torch.Tensor:
+    """Host array (or numpy scalar) -> tensor on `device`.  Every
+    host->device copy of the measure executors goes through here, and
+    every device->host copy through ``device_get``: the two boundaries
+    the kernel audit counts (lint/kernel/dispatch.py)."""
+    return torch.as_tensor(a).to(device)
+
+
 def device_get(tree):
     """Move a nested dict of tensors to host numpy in one batch: every
     device tensor is copied into pinned memory without blocking, then
@@ -1034,11 +1042,9 @@ def _reduce_partials(
 
     # predicate values and histogram scalars ship once per reduction,
     # not once per chunk
-    pred_vals = {
-        k: torch.as_tensor(v, device=device) for k, v in pred_np.items()
-    }
-    hist_lo_dev = torch.tensor(hist_lo, dtype=torch.float32, device=device)
-    hist_span_dev = torch.tensor(hist_span, dtype=torch.float32, device=device)
+    pred_vals = {k: ship(v, device) for k, v in pred_np.items()}
+    hist_lo_dev = ship(np.float32(hist_lo), device)
+    hist_span_dev = ship(np.float32(hist_span), device)
     dev_cache = None
     if gather_key is not None:
         from banyandb_tpu_torch.storage.cache import device_cache
@@ -1662,13 +1668,10 @@ def _device_chunk(
     nb = spec.nrows
     compressed = "src_ord" in cols
 
-    def ship(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(device)
-
     def pad(a: np.ndarray, dtype):
         out = np.zeros((nb,), dtype=dtype)
         out[:n] = a[start:end]
-        return ship(out)
+        return ship(out, device)
 
     valid = np.zeros((nb,), dtype=bool)
     valid[:n] = True
@@ -1679,9 +1682,9 @@ def _device_chunk(
     ts = np.zeros((nb,), dtype=np.int64)
     ts[:n] = ts_off
     chunk = {
-        "ts": ship(ts.astype(np.int32)),
+        "ts": ship(ts.astype(np.int32), device),
         "series": pad(cols["series"] % (2**31), np.int32),
-        "valid": ship(valid),
+        "valid": ship(valid, device),
     }
     shipped = dense = 0
     if compressed:
@@ -1700,7 +1703,7 @@ def _device_chunk(
             for t in spec.tags_code:
                 dev = None if lut_cache is None else lut_cache.get(t)
                 if dev is None:
-                    dev = ship(enc_mod.pack_luts(cols["tags_lut"][t]))
+                    dev = ship(enc_mod.pack_luts(cols["tags_lut"][t]), device)
                     if lut_cache is not None:
                         lut_cache[t] = dev
                     shipped += dev.nbytes
@@ -1739,7 +1742,7 @@ def _device_chunk(
     # rep-less plan must still serve a rep-tracking one
     row = np.zeros((nb,), dtype=np.int32)
     row[:n] = np.arange(start, end, dtype=np.int32)
-    chunk["row"] = ship(row)
+    chunk["row"] = ship(row, device)
     if ship_stats is not None:
         ship_stats.append((shipped, dense))
     return chunk

@@ -14,7 +14,9 @@ Semantics match query/filter.row_mask exactly (-1 = literal not in
 dictionary, -2 = column absent); tests/test_torch_stream.py holds the
 two, and this module against banyandb_tpu's, on random data.  PyTorch
 runs eagerly, so there is no per-shape kernel to compile: rows are not
-padded to a bucket and no kernel cache is kept.
+padded and no kernel cache is kept.  The plan signature still names the
+power-of-two row bucket (``_pad_bucket``), as the reference's does, so
+the precompile registry's population stays O(log max_rows).
 """
 
 from __future__ import annotations
@@ -43,6 +45,11 @@ def reset_stats() -> None:
         STATS[k] = 0
 
 
+def _pad_bucket(n: int) -> int:
+    """Next power-of-two row bucket: the ``nrows`` of a mask signature."""
+    return 1 << max(n - 1, 1).bit_length()
+
+
 @dataclass(frozen=True)
 class _MaskSpec:
     preds: tuple[tuple[str, int], ...]  # (op, padded set size)
@@ -51,10 +58,33 @@ class _MaskSpec:
 
 def _ship(col: np.ndarray, device):
     """Host column -> tensor on `device` at its stored width."""
-    import torch
+    from banyandb_tpu_torch.query import measure_exec
 
     STATS["h2d_bytes"] += col.nbytes
-    return torch.from_numpy(col).to(device)
+    return measure_exec.ship(col, device)
+
+
+def _build_kernel(spec: _MaskSpec):
+    """The mask function of `spec`: (cols, pred_vals) -> bool mask on the
+    columns' device.  Columns arrive at their stored width (the
+    device-side decode stage widens narrow i8/i16 codes first); an eq/ne
+    value is an int or a 0-d i32 tensor, an in/not_in value a padded i32
+    code set."""
+    from banyandb_tpu_torch import ops
+
+    def kernel(cols, pred_vals):
+        mask = None
+        for (op, _nv), col, v in zip(spec.preds, cols, pred_vals):
+            col = ops.widen_codes(col)
+            if op in ("in", "not_in"):
+                m = ops.in_set_mask(col, v)
+                m = ~m if op == "not_in" else m
+            else:
+                m = ops.cmp_mask(col, op, v)
+            mask = m if mask is None else mask & m
+        return mask
+
+    return kernel
 
 
 def device_tag_mask(src: ColumnData, conds: list[Condition], device):
@@ -63,14 +93,15 @@ def device_tag_mask(src: ColumnData, conds: list[Condition], device):
     takes the host path)."""
     import torch
 
-    from banyandb_tpu_torch import ops
+    from banyandb_tpu_torch.query import measure_exec
     from banyandb_tpu_torch.query.precompile import default_registry
 
     n = src.ts.size
     if not conds or any(c.op not in _SUPPORTED for c in conds):
         return None
     device = torch.device(device)
-    mask = torch.ones(n, dtype=torch.bool, device=device)
+    cols = []
+    vals = []
     preds = []
     for c in conds:
         col = src.tags.get(c.name)
@@ -80,9 +111,9 @@ def device_tag_mask(src: ColumnData, conds: list[Condition], device):
         # compressed and widen there before any compare — predicate codes
         # are i32, so the mask math is identical either way
         if col is None:
-            col = torch.full((n,), -2, dtype=torch.int32, device=device)
+            cols.append(torch.full((n,), -2, dtype=torch.int32, device=device))
         else:
-            col = ops.widen_codes(_ship(col, device))
+            cols.append(_ship(col, device))
         d = src.dicts.get(c.name, [])
         lut = {v: i for i, v in enumerate(d)}
         if c.op in ("in", "not_in"):
@@ -94,17 +125,17 @@ def device_tag_mask(src: ColumnData, conds: list[Condition], device):
             arr = np.full(padded_len, -1, dtype=np.int32)
             arr[: len(codes)] = codes
             preds.append((c.op, padded_len))
-            m = ops.in_set_mask(col, _ship(arr, device))
-            mask &= ~m if c.op == "not_in" else m
+            vals.append(_ship(arr, device))
         else:
-            code = lut.get(tag_value_bytes(c.value), -1)
             preds.append((c.op, 1))
-            mask &= ops.cmp_mask(col, c.op, code)
-    default_registry().record("stream_mask", _MaskSpec(preds=tuple(preds), nrows=n))
+            vals.append(lut.get(tag_value_bytes(c.value), -1))
+    spec = _MaskSpec(preds=tuple(preds), nrows=_pad_bucket(n))
+    mask = _build_kernel(spec)(cols, vals)
+    default_registry().record("stream_mask", spec)
     STATS["device_masks"] += 1
     # the retrieval result boundary: the whole bool mask moves in one
     # transfer; the host gather needs it
-    return mask.cpu().numpy()
+    return measure_exec.device_get(mask)
 
 
 def row_mask(

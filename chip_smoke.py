@@ -57,13 +57,35 @@ before the last line is printed:
    query that must fall back to the scatter partials; each result
    against the host combine, the same mesh on CPU slots and a numpy
    oracle, ``executions`` once per mesh query;
-11. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
+11. cold start against warmed start: two fresh processes of this script
+   (``--warm-child A|B``) share an empty build cache
+   (``BYDB_COMPILE_CACHE_DIR``) and phase 6's data.  A reopens the
+   engine, builds the kernel library (an ``nvcc`` miss), asks phase 6's
+   two queries twice each and records their plan signatures into
+   ``<root>/plan-registry.json`` (``attach_store``); B, started after A
+   exits, loads the library (a hit), attaches the same store, runs
+   ``warm()`` on the card and asks the queries once; a third, C, cold
+   like A, asks the TOP 10 under ``torch.profiler`` (where a cold
+   query's time goes).
+   All answer with phase 6's values; the warm must launch
+   ``fused_group_multi`` and ``widen_narrow`` with no error.  One
+   ``{"warm": ...}`` line;
+12. kernel audit on the card: every dispatch scenario of
+   ``lint/kernel/dispatch.py`` on CUDA tensors under ``torch.profiler``,
+   in a fresh process (``--audit-child``);
+   its host->device ships, gets and hand-kernel launches must equal the
+   budget table (``lint/kernel/kernel_budgets.py``); the profiler's
+   kernel, copy and memset counts are recorded beside the table's op
+   estimate.  One ``{"kernel_audit": [...]}`` line;
+13. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
-Every launch count is set to 0 just before a path (4, 5, 6, 8, 10) is
-driven and read just after it; each kernel of a path must have launched
-there (the stream path launches none of the four kernels: its mask is
-PyTorch compares on the card).
+Every launch count is set to 0 just before a path (4, 5, 6, 8, 10, the
+warm of 11, 12) is driven and read just after it; each kernel of a path
+must have launched there (the stream path launches none of the four
+kernels: its mask is PyTorch compares on the card).  Phases 1-10 run
+with the precompile registry off (``BYDB_PRECOMPILE=0``), so no
+background warm runs beside them; phase 11's children turn it on.
 
 The query's data: the BASELINE.json configuration "service_resp_time
 avg+percentile, 1k series, groupBy service_id" — ``latency`` drawn from
@@ -101,6 +123,8 @@ PATH_KERNELS = {
     "decode": ("prefix_sum_narrow",),
     "engine": ("fused_group_multi",),
     "cluster": ("fused_group_multi",),
+    "warm": ("fused_group_multi", "widen_narrow"),
+    "audit": ("fused_group_multi", "widen_narrow"),
 }
 
 
@@ -961,10 +985,10 @@ def same_values(a, b, exact: set, what: str) -> None:
         check(ok, f"{what}: {k} differs")
 
 
-def engine_path(hk, n_points: int, device: str, root: str) -> dict:
+def engine_path(hk, n_points: int, device: str, root: str) -> tuple:
     """Write through MeasureEngine.write_columns, query from BydbQL on
-    `device`; -> the launch counts of the path (the CPU engine's runs
-    come after they are read)."""
+    `device`; -> (the launch counts of the path (the CPU engine's runs
+    come after they are read), {query name: the card's first result})."""
     from banyandb_tpu_torch import bydbql
     from banyandb_tpu_torch.models.measure import DictColumn as EngineDict
     from banyandb_tpu_torch.models.measure import MeasureEngine
@@ -1033,7 +1057,7 @@ def engine_path(hk, n_points: int, device: str, root: str) -> dict:
     want = ["svc-%04d" % i for i in np.argsort(-mean, kind="stable")[:10]]
     check([g[0] for g in top.groups] == want, "engine topn: TOP 10 differs from numpy")
     log("  ok  engine topn: TOP 10 by mean latency agrees with numpy")
-    return launches
+    return launches, card
 
 
 # -- phase 7: determinism of scatter and sort ----------------------------------
@@ -1676,12 +1700,278 @@ def cluster_path(hk, n_points: int, device: str, root: str) -> dict:
     return launches
 
 
+# -- phase 11: cold start against warmed start ----------------------------------
+
+WARM_QUERIES = ("topn", "percentile")
+
+
+def result_doc(res) -> dict:
+    """A query result as JSON-able plain values (groups as lists)."""
+    return json.loads(json.dumps({
+        "groups": [list(g) for g in res.groups],
+        "values": res.values,
+        "rep_tags": res.rep_tags,
+    }))
+
+
+def same_doc(a, b) -> bool:
+    """Equal value for value (NaN equals NaN)."""
+    if isinstance(a, float) and isinstance(b, float):
+        return a == b or (a != a and b != b)
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(same_doc(a[k], b[k]) for k in a)
+    if isinstance(a, list) and isinstance(b, list):
+        return len(a) == len(b) and all(same_doc(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def warm_child(role: str, root: str, out_path: str, device: str) -> int:
+    """One fresh process of phase 11 (run by warm_phase): the engine
+    reopened on phase 6's root, the kernel library from the build cache
+    named by BYDB_COMPILE_CACHE_DIR, the registry's store at
+    <root>/plan-registry.json.  A asks each query twice and records;
+    B warms, then asks each query once; C, cold like A, asks the TOP 10
+    once under torch.profiler (where a cold query's time goes).  On `device`; writes its numbers to `out_path` as
+    JSON."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from banyandb_tpu_torch import bydbql
+    from banyandb_tpu_torch.api import SchemaRegistry
+    from banyandb_tpu_torch.models.measure import MeasureEngine
+    from banyandb_tpu_torch.obs.tracer import Tracer
+    from banyandb_tpu_torch.ops import hopper_kernels as hk
+    from banyandb_tpu_torch.query import precompile
+    from banyandb_tpu_torch.utils import compile_cache
+
+    out: dict = {"role": role}
+    t0 = time.perf_counter()
+    if device == "cuda":  # the context, apart from what follows
+        torch.zeros(1, device=device)
+        torch.cuda.synchronize()
+        out["arch_list"] = torch.cuda.get_arch_list()
+    out["ctx_s"] = time.perf_counter() - t0
+    cc = compile_cache.enable()
+    check(cc == os.environ["BYDB_COMPILE_CACHE_DIR"], f"child {role}: build cache {cc}")
+    if device == "cuda":
+        hk.build()
+    reg = precompile.default_registry()
+    reg.device = device
+    reg.attach_store(os.path.join(root, "plan-registry.json"))
+    t0 = time.perf_counter()
+    eng = MeasureEngine(SchemaRegistry(os.path.join(root, "schema")),
+                        os.path.join(root, "data"), device=device)
+    out["open_s"] = time.perf_counter() - t0
+    reqs = {k: bydbql.parse(v) for k, v in engine_queries(N_POINTS).items()}
+    if role == "B":
+        out["recorded_before_warm"] = reg.stats()["recorded"]
+        hk.reset_launches()
+        t0 = time.perf_counter()
+        out["warmed"] = reg.warm()
+        out["warm_s"] = time.perf_counter() - t0
+        out["warm_launches"] = dict(hk.LAUNCHES)
+    runs = 2 if role == "A" else 1
+    out["walls_ms"] = {}
+    out["breakdown"] = {}
+    out["results"] = {}
+    for name in WARM_QUERIES[:1] if role == "C" else WARM_QUERIES:
+        walls = []
+        for i in range(runs):
+            tr = Tracer("warm")
+            profiled = role == "C" and not out["walls_ms"] and i == 0
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if device == "cuda" else []
+            )
+            with profile(activities=acts) if profiled else contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                res = eng.query(reqs[name], tracer=tr)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            if profiled:
+                out["cold_profile"] = cold_profile(prof)
+            if i == 0:
+                out["breakdown"][name] = engine_breakdown(tr.finish())
+        out["walls_ms"][name] = walls
+        out["results"][name] = result_doc(res)
+    eng.close()
+    reg.shutdown()  # joins the save timer: the store is on disk
+    out["registry"] = reg.stats()
+    out["compile_cache"] = compile_cache.stats()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def cold_profile(prof) -> dict:
+    """The host ops that took most of a profiled query (self time), and
+    the card's busy time beside them."""
+    ka = prof.key_averages()
+    top = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    return {
+        "top_self_cpu_ms": [
+            [e.key[:70], e.self_cpu_time_total / 1e3, e.count] for e in top
+        ],
+        "device_busy_ms": sum(
+            getattr(e, "self_device_time_total", 0.0) for e in ka
+        ) / 1e3,
+    }
+
+
+def run_child(role: str, root: str, cc_dir: str, device: str) -> dict:
+    out_path = os.path.join(cc_dir, f"child-{role}.json")
+    env = dict(os.environ)
+    env["BYDB_COMPILE_CACHE_DIR"] = os.path.join(cc_dir, "lib")
+    env["BYDB_PRECOMPILE"] = "1"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--warm-child", role, root,
+         out_path, device],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=600,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+    check(proc.returncode == 0, f"warm child {role} exited {proc.returncode}")
+    with open(out_path) as f:
+        doc = json.load(f)
+    doc["process_s"] = wall
+    return doc
+
+
+def warm_phase(root: str, card: dict, device: str = "cuda") -> dict:
+    """Phase 11 -> the launch counts of B's warm() (`device` "cpu" only
+    to rehearse the phase without a card)."""
+    import torch
+
+    want = {name: result_doc(card[name]) for name in WARM_QUERIES}
+    if device == "cuda":
+        torch.cuda.empty_cache()  # the children need the card's memory
+    with tempfile.TemporaryDirectory(prefix="bydb-smoke-cc-") as cc_dir:
+        a = run_child("A", root, cc_dir, device)
+        b = run_child("B", root, cc_dir, device)
+        c = run_child("C", root, cc_dir, device)
+    for doc in (a, b, c):
+        for name in doc["results"]:
+            check(same_doc(doc["results"][name], want[name]),
+                  f"warm child {doc['role']}: {name} differs from phase 6")
+    check(sorted(a["results"]) == sorted(b["results"]) == sorted(WARM_QUERIES),
+          "warm children: a query is missing")
+    ca, cb = a["compile_cache"], b["compile_cache"]
+    if device == "cuda":
+        check(ca["misses"] == 1 and ca["builds"] == 1 and ca["hits"] == 0,
+              f"child A: expected one nvcc build, got {ca}")
+        check(cb["hits"] == 1 and cb["builds"] == 0,
+              f"child B: expected a load from the cache, got {cb}")
+    check(a["registry"]["recorded"] > 0, "child A recorded no signature")
+    check(b["recorded_before_warm"] == a["registry"]["recorded"],
+          "child B did not load child A's store")
+    rb = b["registry"]
+    check(rb["errors"] == 0, f"warm errors: {rb['errors']} ({rb['last_error']})")
+    launches = b["warm_launches"]
+    for k in PATH_KERNELS["warm"] if device == "cuda" else ():
+        check(launches[k] > 0, f"{k}: not launched by warm()")
+    log(f"  ok  children A and B answer with phase 6's values; warm() "
+        f"{b['warm_s']:.3f} s over {b['warmed']} signatures, launches {launches}")
+    print(json.dumps({"warm": {
+        "build_s": ca["build_s"], "load_s": cb["load_s"],
+        "load_s_after_build": ca["load_s"],
+        "warm_s": b["warm_s"], "compiled": rb["compiled"],
+        "errors": rb["errors"], "signatures_recorded": a["registry"]["recorded"],
+        "warm_launches": launches,
+        "first_ms": {r: {k: v[0] for k, v in d["walls_ms"].items()}
+                     for r, d in (("A", a), ("B", b), ("C", c))},
+        "second_ms_A": {k: v[1] for k, v in a["walls_ms"].items()},
+        "first_breakdown": {"A": a["breakdown"], "B": b["breakdown"]},
+        "cold_profile_C": c["cold_profile"],
+        "ctx_s": {"A": a["ctx_s"], "B": b["ctx_s"]},
+        "arch_list": a.get("arch_list"),
+        "open_s": {"A": a["open_s"], "B": b["open_s"]},
+        "process_s": {"A": a["process_s"], "B": b["process_s"]},
+        "compile_cache": {"A": ca, "B": cb},
+    }}), flush=True)
+    return launches
+
+
+# -- phase 12: kernel audit on the card -------------------------------------------
+
+
+def audit_child(out_path: str) -> int:
+    """The process of phase 12 (run by audit_phase): every dispatch
+    scenario on the card under torch.profiler, written to `out_path` as
+    JSON.  A fresh process, as tests/test_torch_cuda.py's: profiles
+    taken late in a long run of this script lost events."""
+    from banyandb_tpu_torch.lint.kernel import dispatch
+    from banyandb_tpu_torch.ops import hopper_kernels as hk
+
+    traces, seen = dispatch.card_audit()
+    doc = {
+        "launches": dict(hk.LAUNCHES),
+        "findings": [f.render() for f in dispatch.dispatch_findings(traces)],
+        "rows": [
+            {"name": name, "error": t.error, "puts": t.puts, "gets": t.gets,
+             "hand_launches": t.hand_launches, **seen[name]}
+            for name, t in traces.items()
+        ],
+    }
+    with open(out_path, "w") as f:
+        json.dump(doc, f)
+    return 0
+
+
+def audit_phase() -> dict:
+    """Phase 12 -> the launch counts of the audit's card runs."""
+    from banyandb_tpu_torch.lint.kernel import kernel_budgets
+
+    with tempfile.TemporaryDirectory(prefix="bydb-smoke-audit-") as tmp:
+        out_path = os.path.join(tmp, "audit.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--audit-child", out_path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=600,
+        )
+        if proc.returncode != 0:
+            log(proc.stdout[-4000:])
+        check(proc.returncode == 0, f"audit child exited {proc.returncode}")
+        with open(out_path) as f:
+            doc = json.load(f)
+    for finding in doc["findings"]:
+        check(False, finding)
+    rows = []
+    for r in doc["rows"]:
+        name = r.pop("name")
+        check(not r.pop("error"), f"audit {name}: scenario failed")
+        row = kernel_budgets.BUDGETS[name]
+        for col in ("puts", "gets", "hand_launches"):
+            check(r[col] == getattr(row, col),
+                  f"audit {name}: {col} {r[col]} on the card, "
+                  f"table {getattr(row, col)}")
+        launched = r.pop("launched")
+        check(sum(launched.values()) == r["hand_launches"],
+              f"audit {name}: {launched} launched, {r['hand_launches']} wrapper calls")
+        rows.append({"name": name, **r, "ops": row.ops,
+                     "h2d_equals_puts": r["h2d"] == r["puts"],
+                     "launched": {k: v for k, v in launched.items() if v}})
+    total = doc["launches"]
+    log(f"  ok  {len(rows)} scenarios: puts, gets and hand-kernel launches "
+        f"equal the budget table; launches {total}")
+    print(json.dumps({"kernel_audit": rows}), flush=True)
+    return total
+
+
 def main() -> int:
     try:
         import torch
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--warm-child"]:  # one process of phase 11
+        return warm_child(*sys.argv[2:])
+    if sys.argv[1:2] == ["--audit-child"]:  # the process of phase 12
+        return audit_child(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1691,6 +1981,9 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
 
+    # no background plan warming beside phases 1-10 (phase 11's children
+    # turn the registry on)
+    os.environ.setdefault("BYDB_PRECOMPILE", "0")
     t_start = time.perf_counter()
 
     def phase(msg: str) -> None:
@@ -1717,9 +2010,11 @@ def main() -> int:
         )
         phase("[5] decode path")
         paths["decode"] = decode_path(hk, parts[0], "cuda")
-    with tempfile.TemporaryDirectory(prefix="bydb-smoke-engine-") as root:
-        phase(f"[6] engine path: {N_POINTS} points through MeasureEngine and BydbQL")
-        paths["engine"] = engine_path(hk, N_POINTS, "cuda", root)
+    # phase 6's data stays until phase 11's children have read it
+    engine_dir = tempfile.TemporaryDirectory(prefix="bydb-smoke-engine-")
+    engine_root = engine_dir.name
+    phase(f"[6] engine path: {N_POINTS} points through MeasureEngine and BydbQL")
+    paths["engine"], engine_card = engine_path(hk, N_POINTS, "cuda", engine_root)
     phase("[7] determinism of the scatter and sort group reduce")
     determinism_phase()
     with tempfile.TemporaryDirectory(prefix="bydb-smoke-stream-") as root:
@@ -1731,7 +2026,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="bydb-smoke-cluster-") as root:
         phase(f"[10] cluster path: {CLUSTER_N} points through a liaison and two data nodes")
         paths["cluster"] = cluster_path(hk, CLUSTER_N, "cuda", root)
-    phase("[11] all phases done")
+    with engine_dir:
+        phase("[11] cold start against warmed start: three fresh processes")
+        paths["warm"] = warm_phase(engine_root, engine_card)
+    phase("[12] kernel audit on the card")
+    paths["audit"] = audit_phase()
+    phase("[13] all phases done")
     for path, kernels in PATH_KERNELS.items():
         for k in kernels:
             check(paths[path][k] > 0, f"{k}: not launched on the {path} path")

@@ -500,3 +500,116 @@ def test_two_node_cluster_on_card_equals_cpu(dev, tmp_path):
         for _liaison, nodes in clusters.values():
             for dn in nodes:
                 dn.measure.close(), dn.stream.close(), dn.trace.close()
+
+
+# -- the precompile registry, the build cache and the kernel audit ----------
+
+
+def test_warm_on_card_launches_the_kernels(dev, monkeypatch):
+    """warm() of the builtin matrix on the card launches the group
+    kernel (every grouped plan) and widen_narrow (the staged compressed
+    ship form), and counts no error."""
+    from banyandb_tpu_torch.query import precompile
+
+    monkeypatch.setenv("BYDB_PRECOMPILE", "1")
+    monkeypatch.setenv("BYDB_DEVICE_DECODE", "1")
+    r = precompile.PrecompileRegistry(device="cuda")
+    hk.reset_launches()
+    assert r.warm() == 11
+    st = r.stats()
+    assert st["errors"] == 0, st["last_error"]
+    assert hk.LAUNCHES["fused_group_multi"] > 0
+    assert hk.LAUNCHES["widen_narrow"] > 0
+
+
+# CUDA kernels the profiler counts for one run of each dispatch scenario
+# on an H100 80GB HBM3 (chip_smoke.py's kernel_audit line records the
+# same); kernel_budgets' ``ops`` column is the estimate without a card beside
+# it (the fused rows' torch.stack shows up as device copies, not kernels)
+CUDA_LAUNCHES = {
+    "measure/flat-count": 12,
+    "measure/group-eq-lut": 33,
+    "measure/percentile-hist": 24,
+    "measure/or-expr": 12,
+    "measure/topn-dashboard": 27,
+    "measure+decode/flat-count": 14,
+    "measure+decode/group-eq-lut": 49,
+    "measure+decode/percentile-hist": 31,
+    "measure+decode/or-expr": 21,
+    "measure+decode/topn-dashboard": 43,
+    "fused/flat-count": 12,
+    "fused/group-eq-lut": 33,
+    "fused/percentile-hist": 24,
+    "fused/or-expr": 12,
+    "fused/topn-dashboard": 27,
+    "fused+decode/flat-count": 13,
+    "fused+decode/group-eq-lut": 48,
+    "fused+decode/percentile-hist": 31,
+    "fused+decode/or-expr": 20,
+    "fused+decode/topn-dashboard": 42,
+    "fused/multi-chunk": 28,
+    "fused+decode/multi-chunk": 29,
+    "stream/mask-eq-in": 4,
+    "stream+decode/mask-eq-in": 6,
+    "ql/trace": 0,
+    "ql/property": 0,
+}
+
+
+def test_card_audit_equals_budget_table(dev):
+    """The dispatch scenarios on the card: host->device ships, gets and
+    hand-kernel launches equal the budget table, every wrapper call is
+    one launch, every ship is one host->device copy, and the profiler's
+    kernel count per scenario is the pinned one."""
+    from banyandb_tpu_torch.lint.kernel import dispatch, kernel_budgets
+
+    traces, seen = dispatch.card_audit()
+    got = {}
+    for name, t in traces.items():
+        assert not t.error, (name, t.error)
+        row = kernel_budgets.BUDGETS[name]
+        assert (t.puts, t.gets, t.hand_launches) == (
+            row.puts, row.gets, row.hand_launches
+        ), name
+        counts = seen[name]
+        assert sum(counts["launched"].values()) == t.hand_launches, name
+        assert counts["h2d"] == t.puts, name
+        got[name] = counts["cuda_launches"]
+    assert got == CUDA_LAUNCHES
+
+
+_LOAD_CHILD = """
+import json, os, sys
+from banyandb_tpu_torch.utils import compile_cache
+assert compile_cache.enable_at(sys.argv[1])
+from banyandb_tpu_torch.ops import hopper_kernels as hk
+hk.build()
+print(json.dumps(compile_cache.stats()))
+"""
+
+
+def test_second_process_loads_the_library_without_nvcc(dev, tmp_path):
+    """A process that finds the library in the build cache's directory
+    loads it: no nvcc (the second child has none on its PATH)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    cc = str(tmp_path / "cc")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def run(env):
+        out = subprocess.run(
+            [sys.executable, "-c", _LOAD_CHILD, cc], env=env, cwd=root,
+            capture_output=True, text=True, timeout=600,
+        )
+        assert out.returncode == 0, out.stderr[-2000:]
+        return json.loads(out.stdout.strip().splitlines()[-1])
+
+    env = dict(os.environ, PYTHONPATH=root)
+    first = run(env)
+    assert (first["builds"], first["hits"], first["entries"]) == (1, 0, 1)
+    no_nvcc = dict(env, CUDA_HOME=str(tmp_path / "none"), PATH="/usr/bin:/bin")
+    second = run(no_nvcc)
+    assert (second["builds"], second["hits"], second["loads"]) == (0, 1, 1)

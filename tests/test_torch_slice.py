@@ -339,6 +339,26 @@ _ISOLATION = textwrap.dedent(
                 == [((s,), 100.0) for s in "abcdef"]), (host, mesh)
         for dn in nodes:
             dn.measure.close(), dn.stream.close(), dn.trace.close()
+
+    # the precompile registry, the build cache, ColumnBatch and the audits
+    import os
+    os.environ["BYDB_PRECOMPILE"] = "1"
+    from banyandb_tpu_torch.lint.kernel import run_kernel_audit
+    from banyandb_tpu_torch.lint.whole_program.plan_audit import run_plan_audit
+    from banyandb_tpu_torch.ops import ColumnBatch
+    from banyandb_tpu_torch.query import precompile
+    from banyandb_tpu_torch.utils import compile_cache
+    import banyandb_tpu_torch.lint
+    with tempfile.TemporaryDirectory() as root:
+        assert compile_cache.enable_at(root) == root
+        assert banyandb_tpu_torch.ops.hopper_kernels._library_path().parent == Path(root)
+        reg = precompile.PrecompileRegistry(device="cpu")
+        reg.attach_store(Path(root) / "plan-registry.json")
+        assert reg.warm(sigs=[("measure", precompile.builtin_plans()[0][1])]) == 1
+        reg.shutdown()
+    ColumnBatch.build(ts_millis=np.arange(10), epoch_millis=0, series_ordinal=np.zeros(10),
+                      fields={}, tag_codes={}, device="cpu")
+    assert run_plan_audit() == [] and run_kernel_audit(fast=True) == []
     bad = sorted(k for k in sys.modules
                  if k in ("jax", "grpc") or k.startswith(
                      ("jax.", "banyandb_tpu.", "grpc.", "google.protobuf")))
