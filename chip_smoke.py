@@ -77,15 +77,32 @@ before the last line is printed:
    budget table (``lint/kernel/kernel_budgets.py``); the profiler's
    kernel, copy and memset counts are recorded beside the table's op
    estimate.  One ``{"kernel_audit": [...]}`` line;
-13. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
+13. server path: ``StandaloneServer(root, device="cuda",
+   slow_query_ms=0)`` with the precompile registry on, started (its warm
+   joined before any query, 0 errors), driven over its in-process bus:
+   phase 6's group and measure through the ``registry`` topic, phase 6's
+   4,194,304 points in ``measure-write-cols`` envelopes of 65,536 points,
+   ``snapshot``, phase 6's two BydbQL queries three times each through
+   the ``bydbql`` topic (``fused_group_multi`` launched on each, every
+   reply equal to phase 6's result and to numpy), one ``trace: true``
+   reply, the percentile again through ``measure-query-raw``, one
+   profiled query; then the ``metrics`` exposition (parsed by
+   ``obs/prom``), the ``slowlog``, the ``_monitoring`` self-measures
+   counted back by BydbQL on the card, the self-trace span rows of
+   ``_monitoring.self_query``; a small stream, trace and property round
+   through their topics against the engines' own answers; and a restart
+   over the same root that must answer with the same bytes.  One
+   ``{"server": ...}`` line;
+14. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a path (4, 5, 6, 8, 10, the
-warm of 11, 12) is driven and read just after it; each kernel of a path
-must have launched there (the stream path launches none of the four
-kernels: its mask is PyTorch compares on the card).  Phases 1-10 run
-with the precompile registry off (``BYDB_PRECOMPILE=0``), so no
-background warm runs beside them; phase 11's children turn it on.
+warm of 11, 12, the queries of 13) is driven and read just after it;
+each kernel of a path must have launched there (the stream path
+launches none of the four kernels: its mask is PyTorch compares on the
+card).  Phases 1-10 run with the precompile registry off
+(``BYDB_PRECOMPILE=0``), so no background warm runs beside them; phase
+11's children and phase 13's server turn it on.
 
 The query's data: the BASELINE.json configuration "service_resp_time
 avg+percentile, 1k series, groupBy service_id" — ``latency`` drawn from
@@ -125,6 +142,7 @@ PATH_KERNELS = {
     "cluster": ("fused_group_multi",),
     "warm": ("fused_group_multi", "widen_narrow"),
     "audit": ("fused_group_multi", "widen_narrow"),
+    "server": ("fused_group_multi",),
 }
 
 
@@ -1962,6 +1980,435 @@ def audit_phase() -> dict:
     return total
 
 
+# -- phase 13: the server path ---------------------------------------------------
+
+# a client batching its writes: 65,536 points an envelope, 16.8 MB charged
+# to the memory protector (256 bytes a point) while one is applied
+SERVER_BATCH = 1 << 16
+# the other models' round, at phase 9's size
+SERVER_TRACES = 200
+SERVER_NODES = 50
+SERVER_ELEMENTS = 3000
+SERVER_ENV = {
+    "BYDB_PRECOMPILE": "1",  # start() warms the plan signatures
+    "BYDB_SELF_TRACE": "1",  # every query's span tree into _monitoring.self_query
+    "BYDB_SELF_TRACE_MS": "0",
+    # the periodic self-measure flush writes _monitoring rows, and the
+    # flush after them starts a warm of the recorded signatures beside
+    # the queries; the phase flushes the self-measures itself instead
+    "BYDB_SELF_MEASURE_INTERVAL_S": "3600",
+    # no materialized windows: the TOP 10 would be answered from them
+    # after three asks, not by the scan this phase holds
+    "BYDB_AUTOREG": "0",
+}
+
+
+def columns_envelope(pts: dict, lo: int, hi: int) -> dict:
+    """A measure-write-cols envelope: base64 little-endian ts and field
+    columns, tag columns as {"dict", "codes"} pairs."""
+    import base64
+
+    def b64(a) -> str:
+        return base64.b64encode(np.ascontiguousarray(a).tobytes()).decode()
+
+    return {
+        "group": ENGINE_GROUP, "name": "service_resp_time",
+        "ts": b64(pts["ts"][lo:hi].astype("<i8")),
+        "tags": {
+            "svc": {"dict": ["svc-%04d" % i for i in range(N_SVC)],
+                    "codes": b64(pts["svc"][lo:hi].astype("<i4"))},
+            "region": {"dict": ["r%d" % i for i in range(N_REGION)],
+                       "codes": b64(pts["region"][lo:hi].astype("<i4"))},
+        },
+        "fields": {"latency": b64(pts["latency"][lo:hi].astype("<f8")),
+                   "calls": b64(pts["calls"][lo:hi].astype("<f8"))},
+        "versions": b64(np.ones(hi - lo, dtype="<i8")),
+    }
+
+
+def server_schema(handle) -> None:
+    """Phase 6's group and measure, and the other models' groups,
+    through the registry topic."""
+    from banyandb_tpu_torch.api import schema as S
+
+    def create(kind, obj):
+        handle("registry", {"op": "create", "kind": kind, "item": S._to_jsonable(obj)})
+
+    create("group", S.Group(ENGINE_GROUP, S.Catalog.MEASURE, S.ResourceOpts(shard_num=2)))
+    create("measure", S.Measure(
+        group=ENGINE_GROUP, name="service_resp_time",
+        tags=(S.TagSpec("svc", S.TagType.STRING), S.TagSpec("region", S.TagType.STRING)),
+        fields=(S.FieldSpec("latency", S.FieldType.FLOAT),
+                S.FieldSpec("calls", S.FieldType.INT)),
+        entity=S.Entity(("svc", "region")),
+    ))
+    for name, cat in (("sg", S.Catalog.STREAM), ("tg", S.Catalog.TRACE),
+                      ("pg", S.Catalog.PROPERTY)):
+        create("group", S.Group(name, cat, S.ResourceOpts(shard_num=2)))
+    items = handle("registry", {"op": "list", "kind": "measure", "group": ENGINE_GROUP})
+    check([i["name"] for i in items["items"]] == ["service_resp_time"],
+          f"server: registry list {items}")
+
+
+def result_values(doc: dict, res) -> None:
+    """A reply["result"] against an engine's QueryResult: groups, their
+    order and representative tags equal; values equal except the sums and
+    means of non-integer fields (rtol)."""
+    from types import SimpleNamespace
+
+    want = result_doc(res)
+    same_values(
+        SimpleNamespace(groups=doc["groups"], values=doc["values"],
+                        rep_tags=doc.get("rep_tags") or {}),
+        SimpleNamespace(groups=want["groups"], values=want["values"],
+                        rep_tags=want["rep_tags"] or {}),
+        {"calls"}, "server vs phase 6",
+    )
+
+
+def server_oracle(pts: dict, n: int, docs: dict) -> None:
+    """The two answers against plain numpy over the points written."""
+    keep = pts["region"] != 3
+    svc = pts["svc"][keep]
+    count = np.bincount(svc, minlength=N_SVC)
+    mean = np.bincount(svc, weights=pts["latency"][keep], minlength=N_SVC) / count
+    top = docs["topn"]
+    want = ["svc-%04d" % i for i in np.argsort(-mean, kind="stable")[:10]]
+    check([g[0] for g in top["groups"]] == want, "server topn: TOP 10 differs from numpy")
+    check(top["values"]["count"] == [float(count[int(g[4:])]) for g in want],
+          "server topn: counts differ from numpy")
+    pct = docs["percentile"]
+    check(sorted(g[0] for g in pct["groups"]) == ["svc-%04d" % i for i in range(N_SVC)
+                                                  if count[i]],
+          "server percentile: group set differs from numpy")
+    # each estimate lies in the bucket holding the rank-ceil(qN) order
+    # statistic (512 buckets over the f32 range of the rows scanned)
+    lat32 = pts["latency"][:n].astype(np.float32)
+    width = (float(lat32.max()) - float(lat32.min())) / 512
+    lat = pts["latency"][keep]
+    order = np.lexsort((lat, svc))
+    bounds = np.searchsorted(svc[order], np.arange(N_SVC + 1))
+    lat_sorted = lat[order]
+    for row, grp in zip(pct["values"]["percentile(latency)"], pct["groups"]):
+        gid = int(grp[0][4:])
+        vals = lat_sorted[bounds[gid]: bounds[gid + 1]]
+        for q, e in zip((0.5, 0.99), row):
+            k = max(int(np.ceil(q * len(vals))), 1) - 1
+            check(abs(e - vals[k]) <= width + 1e-4,
+                  f"server percentile: p{q} of {grp[0]} = {e}, order statistic {vals[k]}")
+
+
+def server_profile(handle, ql: str) -> dict:
+    """Device busy time and idle share over one query through the bus."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        handle("bydbql", {"ql": ql})
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall}
+
+
+def span_count(tree: dict) -> int:
+    return 1 + sum(span_count(c) for c in tree.get("children", ()))
+
+
+def server_models(handle, srv) -> dict:
+    """A small stream, trace and property round through their topics,
+    held against the engines' own answers and plain Python."""
+    import base64
+
+    from banyandb_tpu_torch import bydbql
+    from banyandb_tpu_torch.server import result_to_json
+
+    handle("registry", {"op": "create_stream", "kind": "stream", "item": {
+        "group": "sg", "name": "log", "entity": ["svc"],
+        "tags": [{"name": "svc", "type": "string"}, {"name": "level", "type": "string"}]}})
+    handle("registry", {"op": "create_trace", "kind": "trace", "item": {
+        "group": "tg", "name": "spans", "trace_id_tag": "trace_id",
+        "tags": [{"name": "trace_id", "type": "string"}, {"name": "svc", "type": "string"},
+                 {"name": "duration", "type": "int"}]}})
+    elements = [
+        {"element_id": "%08x" % i, "ts": T0 + i,
+         "tags": {"svc": f"s{i % 7}", "level": LEVELS[i % 4]},
+         "body": base64.b64encode(b"line %d" % i).decode()}
+        for i in range(SERVER_ELEMENTS)
+    ]
+    check(handle("stream-write", {"group": "sg", "name": "log", "elements": elements})
+          == {"written": SERVER_ELEMENTS}, "server stream: write")
+    request = {"groups": ["sg"], "name": "log", "limit": 50,
+               "time_range": [T0, T0 + SERVER_ELEMENTS],
+               "criteria": {"kind": "cond", "op": "eq", "name": "level", "value": "ERROR"}}
+    got = handle("stream-query-user", {"request": request})["result"]
+    from banyandb_tpu_torch.cluster import serde
+
+    own = result_to_json(srv.stream.query(serde.query_request_from_json(request)))
+    check(json.dumps(got) == json.dumps(own), "server stream: reply differs from the engine")
+    want = ["%08x" % i for i in range(SERVER_ELEMENTS - 1, -1, -1) if i % 4 == 2][:50]
+    check([dp["element_id"] for dp in got["data_points"]] == want,
+          "server stream: rows differ from plain Python")
+    spans = [
+        {"ts": T0 + t * 10 + s, "span": base64.b64encode(b"sp-%d-%d" % (t, s)).decode(),
+         "tags": {"trace_id": f"t{t}", "svc": f"s{t % 5}", "duration": t * 100 + s * 7}}
+        for t in range(SERVER_TRACES) for s in range(3)
+    ]
+    check(handle("trace-write", {"group": "tg", "name": "spans", "spans": spans,
+                                 "ordered_tags": ["duration"]})
+          == {"written": len(spans)}, "server trace: write")
+    got = handle("trace-query-by-id", {"group": "tg", "name": "spans", "trace_id": "t17"})
+    own = serde.spans_to_json(srv.trace.query_by_trace_id("tg", "spans", "t17"))
+    check(json.dumps(got["spans"]) == json.dumps(own), "server trace: reply differs")
+    check([base64.b64decode(s["span"]) for s in got["spans"]]
+          == [b"sp-17-%d" % s for s in range(3)], "server trace: spans differ")
+    ql = ("SELECT * FROM TRACE spans IN tg WHERE svc = 's3' AND duration >= 5000 "
+          "LIMIT 1000")
+    got = handle("bydbql", {"ql": ql})["result"]
+    from banyandb_tpu_torch.query import ql_exec
+
+    own = result_to_json(ql_exec.execute_trace_ql(srv.trace, bydbql.parse_with_catalog(ql)[1]))
+    check(json.dumps(got["data_points"]) == json.dumps(own["data_points"]),
+          "server trace: BydbQL reply differs from the engine")
+    check(len(got["data_points"]) == sum(1 for t in range(SERVER_TRACES) for s in range(3)
+                                         if t % 5 == 3 and t * 100 + s * 7 >= 5000),
+          "server trace: BydbQL rows differ from plain Python")
+    for i in range(SERVER_NODES):
+        handle("property-apply", {"group": "pg", "name": "node", "id": f"n{i}",
+                                  "tags": {"role": ("data", "liaison")[i % 2]}})
+    upd = handle("property-apply", {"group": "pg", "name": "node", "id": "n3",
+                                    "tags": {"zone": "z1"}})
+    check(upd["mod_revision"] > upd["create_revision"], "server property: revisions")
+    got = handle("property-query", {"group": "pg", "name": "node",
+                                    "tag_filters": {"role": "data"}})
+    ids = sorted(p["id"] for p in got["properties"])
+    own = sorted(p.id for p in srv.property.query("pg", "node", tag_filters={"role": "data"}))
+    check(ids == own == sorted(f"n{i}" for i in range(SERVER_NODES) if i % 2 == 0),
+          "server property: query differs")
+    check(handle("property-query", {"group": "pg", "name": "node", "id": "n3"})
+          == {"properties": [{"role": "liaison", "zone": "z1"}]}, "server property: get")
+    return {"stream_rows": 50, "trace_spans": len(spans), "properties": SERVER_NODES}
+
+
+def server_path(hk, n_points: int, device: str, root: str, want: dict) -> tuple:
+    """Phase 13: StandaloneServer driven over its bus on `device`; `want`
+    holds phase 6's results.  -> (the launch counts of the queries, the
+    figures of the {"server": ...} line)."""
+    from banyandb_tpu_torch.obs import prom
+    from banyandb_tpu_torch.query import precompile
+    from banyandb_tpu_torch.server import StandaloneServer
+
+    saved = {k: os.environ.get(k) for k in SERVER_ENV}
+    os.environ.update(SERVER_ENV)
+    reg = precompile.default_registry()
+    fig: dict = {"points": n_points, "envelope_points": SERVER_BATCH}
+    srv = None
+    try:
+        # 1. build and start; the warm runs on its own thread: its
+        # launches are read after it has joined, before any query
+        hk.reset_launches()
+        t0 = time.perf_counter()
+        srv = StandaloneServer(root, device=device, slow_query_ms=0)
+        srv.start()
+        fig["start_s"] = time.perf_counter() - t0
+        check(reg.wait_warm(600), "server: the warm did not finish")
+        fig["warm_s"] = time.perf_counter() - t0
+        st = reg.stats()
+        fig["warm"] = {"compiled": st["compiled"], "errors": st["errors"],
+                       "launches": dict(hk.LAUNCHES), "device": st["device"]}
+        check(st["errors"] == 0, f"server warm errors: {st['errors']} ({st['last_error']})")
+        check(st["device"] == str(srv.device), f"server: registry warms on {st['device']}")
+        for k in PATH_KERNELS["warm"] if device == "cuda" else ():
+            check(hk.LAUNCHES[k] > 0, f"server warm: {k} not launched")
+        fig["pressure_profiler"] = srv.pressure_profiler is not None
+        fig["protector_limit"] = srv.protector.limit
+        log(f"  server started in {fig['start_s']:.3f} s, warm joined at "
+            f"{fig['warm_s']:.3f} s: {fig['warm']}; pressure profiler "
+            f"{'on' if fig['pressure_profiler'] else 'off'} (protector limit "
+            f"{srv.protector.limit})")
+
+        def handle(topic, env):
+            return srv.bus.handle(topic, env)
+
+        # 2. schema through the registry topic
+        server_schema(handle)
+
+        # 3. phase 6's points in measure-write-cols envelopes, then snapshot
+        pts = make_points(n_points, SEED + 1)
+        write_s = 0.0
+        for lo in range(0, n_points, SERVER_BATCH):
+            env = columns_envelope(pts, lo, min(lo + SERVER_BATCH, n_points))
+            t1 = time.perf_counter()
+            reply = handle("measure-write-cols", env)
+            write_s += time.perf_counter() - t1
+            check(reply == {"written": min(SERVER_BATCH, n_points - lo)},
+                  f"server write: {reply}")
+        t1 = time.perf_counter()
+        snap = handle("snapshot", {})
+        fig["snapshot_s"] = time.perf_counter() - t1
+        fig["ingest_s"] = write_s
+        fig["ingest_points_per_s"] = n_points / write_s
+        log(f"  wrote {n_points} points in {n_points // SERVER_BATCH} measure-write-cols "
+            f"envelopes: {write_s!r} s ({fig['ingest_points_per_s']!r} points/s); "
+            f"snapshot {fig['snapshot_s']!r} s ({len(snap['flushed'])} parts flushed)")
+
+        # 4. the two queries, three times each, through the bydbql topic,
+        # over the parts the lifecycle loop left (phase 6 has eight)
+        def n_parts():
+            db = srv.measure._tsdb(ENGINE_GROUP)
+            return sum(len(sh.parts) for seg in db.segments for sh in seg.shards)
+
+        fig["parts_before_queries"] = n_parts()
+        texts = engine_queries(n_points)
+        check(reg.wait_warm(600), "server: a flush warm did not finish")
+        compiled0 = reg.stats()["compiled"]
+        hk.reset_launches()
+        walls, docs, served = {}, {}, {}
+        for name, ql in texts.items():
+            walls[name], served[name] = [], []
+            for i in range(3):
+                before = hk.LAUNCHES["fused_group_multi"]
+                t1 = time.perf_counter()
+                reply = handle("bydbql", {"ql": ql})
+                walls[name].append((time.perf_counter() - t1) * 1e3)
+                served[name].append(reply["served"])
+                # a partials-cache replay launches nothing; the card's
+                # 4,194,304 points overflow that cache (checked below)
+                check(hk.LAUNCHES["fused_group_multi"] > before
+                      or device != "cuda" or reply["served"] != "scan",
+                      f"server {name}: fused_group_multi not launched")
+                if i == 0:
+                    docs[name] = reply["result"]
+                else:
+                    check(json.dumps(reply["result"]) == json.dumps(docs[name]),
+                          f"server {name}: repeat run differs")
+            result_values(docs[name], want[name])
+            log(f"  server {name} wall ms {walls[name]!r}, served {served[name]}; "
+                "agrees with phase 6")
+            check(device != "cuda" or served[name] == ["scan"] * 3,
+                  f"server {name}: served {served[name]}, not a scan each time")
+        traced = handle("bydbql", {"ql": texts["topn"], "trace": True})
+        check(json.dumps({k: v for k, v in traced["result"].items() if k != "trace"})
+              == json.dumps(docs["topn"]), "server topn: traced reply differs")
+        fig["breakdown_topn"] = engine_breakdown(traced["result"]["trace"]["span_tree"])
+        log(f"  server topn breakdown (trace: true): {fig['breakdown_topn']}")
+        from banyandb_tpu_torch import bydbql
+        from banyandb_tpu_torch.cluster import serde
+
+        raw = handle("measure-query-raw", {
+            "request": serde.query_request_to_json(bydbql.parse(texts["percentile"]))})
+        check(json.dumps(raw["result"]) == json.dumps(docs["percentile"]),
+              "server: measure-query-raw differs from bydbql")
+        if device == "cuda":
+            fig["profile_topn"] = server_profile(handle, texts["topn"])
+            log(f"  server topn profile: {fig['profile_topn']}")
+        launches = dict(hk.LAUNCHES)
+        st = reg.stats()
+        check(not st["warming"] and st["compiled"] == compiled0,
+              "server: a warm ran beside the queries; their launches are not theirs alone")
+        n_queries = 6 + 1 + 1 + (device == "cuda")
+        log(f"  kernel launches over the server's {n_queries} measure queries: {launches}")
+        server_oracle(pts, n_points, docs)
+        log("  ok  server: TOP 10, counts and percentiles agree with numpy")
+        fig["walls_ms"] = walls
+        fig["served"] = served
+        fig["parts_after_queries"] = n_parts()
+        log(f"  server parts: {fig['parts_before_queries']} before the queries, "
+            f"{fig['parts_after_queries']} after (the lifecycle loop merges beside them)")
+
+        # 5. the serving planes
+        text = handle("metrics", {})["prometheus"]
+        samples = prom.parse_exposition(text)
+        names = {s[0] for s in samples}
+        for base in ("measure_query_ms", "measure_write_points", "precompile_recorded",
+                     "precompile_compiled", "precompile_errors", "serving_cache_hits",
+                     "serving_cache_misses"):
+            check(any(base in nm for nm in names), f"server metrics: {base} missing")
+
+        def value(name, labels=None):
+            return prom.gauge_value(text, name, labels)
+
+        scope = next(nm for nm in names if nm.endswith("measure_write_points_total"))
+        pfx = scope[: -len("measure_write_points_total")]
+        check(value(pfx + "measure_write_points_total") == n_points,
+              "server metrics: measure_write_points")
+        check(value(pfx + "measure_query_ms_count") == 1,
+              "server metrics: measure_query_ms counts the raw-topic query")
+        check(value(pfx + "precompile_errors") == 0, "server metrics: precompile_errors")
+        check(value(pfx + "precompile_compiled") == st["compiled"],
+              "server metrics: precompile_compiled")
+        fig["metrics_samples"] = len(samples)
+        slow = handle("slowlog", {})
+        entries = slow["entries"]
+        check(len(entries) == n_queries and all(e["span_tree"] for e in entries),
+              f"server slowlog: {len(entries)} entries for {n_queries} queries")
+        fig["slowlog_entries"] = len(entries)
+        # the bus, parse, admission and epilogue around each engine run:
+        # the handle's wall less the engine's own ms the slowlog kept
+        # (entries newest first; the first six are the timed queries)
+        engine_ms = [e["duration_ms"] for e in reversed(entries)][:6]
+        fig["overhead_ms"] = [w - e for w, e in zip(walls["topn"] + walls["percentile"],
+                                                    engine_ms)]
+        log(f"  server overhead around the engine, ms: {fig['overhead_ms']!r}")
+        now = int(time.time() * 1000)
+        wrote = srv.self_metrics.flush(now_millis=now)
+        own = handle("bydbql", {"ql": "SELECT count(value) FROM MEASURE instruments IN "
+                                      f"_monitoring TIME BETWEEN {now} AND {now} GROUP BY kind"})
+        counted = sum(own["result"]["values"]["count(value)"])
+        check(wrote > 0 and counted == wrote,
+              f"server self-measures: {counted} rows counted, {wrote} written")
+        srv.self_trace.flush()
+        rows = handle("bydbql", {"ql": "SELECT * FROM TRACE self_query IN _monitoring "
+                                       "WHERE engine = 'measure' LIMIT 100000"})
+        span_rows = rows["result"]["data_points"]
+        want_rows = sum(span_count(e["span_tree"]) for e in entries if e["engine"] == "measure")
+        stages = {dp["tags"]["stage"] for dp in span_rows}
+        check(len(span_rows) >= want_rows and "reduce" in stages,
+              f"server self-trace: {len(span_rows)} span rows, {want_rows} spans offered")
+        fig["self_measure_rows"] = wrote
+        fig["self_trace_rows"] = len(span_rows)
+        log(f"  ok  server planes: {len(samples)} metric samples, {len(entries)} slowlog "
+            f"entries, {wrote} self-measure rows counted back by BydbQL, "
+            f"{len(span_rows)} self-trace span rows ({want_rows} spans of the "
+            f"measure queries)")
+
+        # 6. the other models through their topics
+        fig["models"] = server_models(handle, srv)
+        log(f"  ok  server stream, trace and property rounds: {fig['models']}")
+
+        # 7. restart over the same root
+        fig["pressure_captures"] = (srv.pressure_profiler.captured
+                                    if srv.pressure_profiler is not None else None)
+        srv.stop()
+        srv = None
+        t1 = time.perf_counter()
+        srv = StandaloneServer(root, device=device, slow_query_ms=0)
+        srv.start()
+        fig["reopen_s"] = time.perf_counter() - t1
+        check(reg.wait_warm(600), "server: the warm after the restart did not finish")
+        fig["reopen_warm_s"] = time.perf_counter() - t1
+        fig["restart_first_ms"] = {}
+        for name, ql in texts.items():
+            t1 = time.perf_counter()
+            reply = handle("bydbql", {"ql": ql})
+            fig["restart_first_ms"][name] = (time.perf_counter() - t1) * 1e3
+            check(json.dumps(reply["result"]) == json.dumps(docs[name]),
+                  f"server {name}: differs after the restart")
+        log(f"  ok  server restart: reopened in {fig['reopen_s']!r} s (warm joined at "
+            f"{fig['reopen_warm_s']!r} s); first queries {fig['restart_first_ms']!r} ms, "
+            "byte-identical")
+        return launches, fig
+    finally:
+        if srv is not None:
+            srv.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def main() -> int:
     try:
         import torch
@@ -2031,7 +2478,11 @@ def main() -> int:
         paths["warm"] = warm_phase(engine_root, engine_card)
     phase("[12] kernel audit on the card")
     paths["audit"] = audit_phase()
-    phase("[13] all phases done")
+    with tempfile.TemporaryDirectory(prefix="bydb-smoke-server-") as root:
+        phase(f"[13] server path: {N_POINTS} points through StandaloneServer's bus")
+        paths["server"], server_fig = server_path(hk, N_POINTS, "cuda", root, engine_card)
+    print(json.dumps({"server": server_fig}), flush=True)
+    phase("[14] all phases done")
     for path, kernels in PATH_KERNELS.items():
         for k in kernels:
             check(paths[path][k] > 0, f"{k}: not launched on the {path} path")

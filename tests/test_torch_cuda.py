@@ -613,3 +613,71 @@ def test_second_process_loads_the_library_without_nvcc(dev, tmp_path):
     no_nvcc = dict(env, CUDA_HOME=str(tmp_path / "none"), PATH="/usr/bin:/bin")
     second = run(no_nvcc)
     assert (second["builds"], second["hits"], second["loads"]) == (0, 1, 1)
+
+
+# -- the standalone server ----------------------------------------------------
+
+
+def test_server_on_card_equals_cpu_server(dev, tmp_path, monkeypatch):
+    """StandaloneServer on the card, driven over its bus (schema,
+    columnar writes, snapshot, BydbQL aggregates), launches the group
+    kernel and answers like a device="cpu" server over the same
+    envelopes; integer-valued data, so every value is exact."""
+    import base64
+
+    from banyandb_tpu_torch.api import schema as S
+    from banyandb_tpu_torch.server import StandaloneServer
+
+    monkeypatch.setenv("BYDB_AUTOREG", "0")
+    t0, n, n_svc = 1_700_000_000_000, 1 << 17, 64
+    rng = np.random.default_rng(5)
+
+    def b64(a):
+        return base64.b64encode(np.ascontiguousarray(a).tobytes()).decode()
+
+    svc = rng.integers(0, n_svc, n).astype("<i4")
+    region = rng.integers(0, 4, n).astype("<i4")
+    value = rng.integers(0, 1000, n).astype("<f8")
+    envelopes = [
+        {"group": "sw", "name": "cpm", "ts": b64((t0 + np.arange(lo, lo + 65536)).astype("<i8")),
+         "tags": {"svc": {"dict": [f"s{i}" for i in range(n_svc)], "codes": b64(svc[lo:lo + 65536])},
+                  "region": {"dict": [f"r{i}" for i in range(4)],
+                             "codes": b64(region[lo:lo + 65536])}},
+         "fields": {"value": b64(value[lo:lo + 65536])}}
+        for lo in range(0, n, 65536)
+    ]
+    queries = [
+        f"SELECT sum(value) FROM MEASURE cpm IN sw TIME BETWEEN {t0} AND {t0 + n} "
+        "WHERE region != 'r3' GROUP BY svc",
+        f"SELECT value FROM MEASURE cpm IN sw TIME BETWEEN {t0} AND {t0 + n} "
+        "GROUP BY svc TOP 5 BY value",
+        f"SELECT percentile(value, 0.5, 0.99) FROM MEASURE cpm IN sw "
+        f"TIME BETWEEN {t0} AND {t0 + n} GROUP BY region",
+    ]
+    answers = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        srv = StandaloneServer(tmp_path / name, device=device)
+        srv.start()
+        try:
+            for kind, obj in (
+                ("group", S.Group("sw", S.Catalog.MEASURE, S.ResourceOpts(shard_num=2))),
+                ("measure", S.Measure(
+                    group="sw", name="cpm",
+                    tags=(S.TagSpec("svc", S.TagType.STRING),
+                          S.TagSpec("region", S.TagType.STRING)),
+                    fields=(S.FieldSpec("value", S.FieldType.INT),),
+                    entity=S.Entity(("svc", "region")))),
+            ):
+                srv.bus.handle("registry", {"op": "create", "kind": kind,
+                                            "item": S._to_jsonable(obj)})
+            for env in envelopes:
+                assert srv.bus.handle("measure-write-cols", env) == {"written": 65536}
+            srv.bus.handle("snapshot", {})
+            before = hk.LAUNCHES["fused_group_multi"]
+            answers[name] = [srv.bus.handle("bydbql", {"ql": ql})["result"] for ql in queries]
+            if name == "card":
+                assert hk.LAUNCHES["fused_group_multi"] >= before + len(queries)
+        finally:
+            srv.stop()
+    assert answers["card"] == answers["cpu"]
+    assert all(a["groups"] for a in answers["card"])

@@ -359,6 +359,17 @@ _ISOLATION = textwrap.dedent(
     ColumnBatch.build(ts_millis=np.arange(10), epoch_millis=0, series_ordinal=np.zeros(10),
                       fields={}, tag_codes={}, device="cpu")
     assert run_plan_audit() == [] and run_kernel_audit(fast=True) == []
+
+    # the standalone server over its bus, with its serving planes
+    from banyandb_tpu_torch.server import StandaloneServer
+    with tempfile.TemporaryDirectory() as root:
+        srv = StandaloneServer(root, device="cpu")
+        srv.start()
+        assert srv.bus.handle("health", {})["status"] == "ok"
+        for topic in ("metrics", "slowlog", "qos", "diagnostics", "snapshot"):
+            srv.bus.handle(topic, {})
+        assert srv.bus.handle("fodc-pprof", {"kinds": ["threads"]})["profiles"]
+        srv.stop()
     bad = sorted(k for k in sys.modules
                  if k in ("jax", "grpc") or k.startswith(
                      ("jax.", "banyandb_tpu.", "grpc.", "google.protobuf")))
