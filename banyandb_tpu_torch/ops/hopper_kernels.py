@@ -88,6 +88,7 @@ LAUNCHES = {
 }
 
 _lib = None
+_lib_path: Path | None = None  # where the loaded library lives
 _lib_lock = threading.Lock()
 # the ops' namespace; its registrations live as long as this object
 _ops = torch.library.Library("bydb", "DEF")
@@ -122,11 +123,12 @@ def build_dir() -> Path:
     return Path(d) if d else BUILD_DIR
 
 
-def _library_path() -> Path:
+def _library_path(directory: Path | None = None) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES:
         h.update((CSRC_DIR / src).read_bytes())
-    return build_dir() / f"libbydb_hopper-{h.hexdigest()[:16]}.so"
+    d = build_dir() if directory is None else Path(directory)
+    return d / f"libbydb_hopper-{h.hexdigest()[:16]}.so"
 
 
 def _compile(so: Path) -> str:
@@ -171,7 +173,7 @@ def build() -> float:
     -> seconds spent.  Called by the first CUDA launch; raises when the
     build or the load fails.  The build cache counts a build as a miss
     and the load of a library already built as a hit."""
-    global _lib, build_log
+    global _lib, _lib_path, build_log
     if _lib is not None:
         return 0.0
     from banyandb_tpu_torch.utils import compile_cache
@@ -196,9 +198,31 @@ def build() -> float:
         lib.bydb_widen_narrow.argtypes = [p, i, ll, p, i, p]
         lib.bydb_prefix_sum_narrow.restype = i
         lib.bydb_prefix_sum_narrow.argtypes = [p, ll, p, ctypes.c_uint, p, i, p]
-        _lib = lib
+        _lib, _lib_path = lib, so
         compile_cache.note_load(time.perf_counter() - t1, hit)
     return time.perf_counter() - t0
+
+
+def provide(directory) -> Path:
+    """Make the library of the current sources exist in `directory`
+    (the package's ``_build/`` when None), so that other processes that
+    build there (the worker pool's children) load it instead of running
+    ``nvcc``: build and load it in this process first (``build()``),
+    then copy it across when this process loaded it from another
+    directory (atomically, like the build).  -> its path there."""
+    build()
+    dst = _library_path(BUILD_DIR if directory is None else Path(directory))
+    if not dst.exists():
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=dst.parent, suffix=".so.tmp")
+        os.close(fd)
+        try:
+            shutil.copyfile(_lib_path, tmp)
+            os.replace(tmp, dst)
+        except BaseException:
+            os.unlink(tmp)
+            raise
+    return dst
 
 
 def _check_rc(rc: int, name: str) -> None:

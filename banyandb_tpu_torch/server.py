@@ -12,9 +12,13 @@ writes and queries, property apply/get/query, registry CRUD, BydbQL,
 health, snapshot, and the serving planes (metrics, slowlog, diagnostics,
 qos, topn, streamagg, pprof capture).
 
-The JAX package serves the same bus over gRPC and adds the wire, HTTP,
-worker-pool and command-line tiers; here each of those raises
-``NotImplementedError`` naming the ROADMAP.md item that brings it.
+``workers=N`` (or ``BYDB_WORKERS=N``) serves the data plane from N
+shard-owning worker subprocesses on the server's device
+(``cluster/workers.py``), with result JSON byte-identical to the
+single-process layout.  The JAX package serves the same bus over gRPC
+and adds the wire, HTTP and command-line tiers; here each of those
+raises ``NotImplementedError`` naming the ROADMAP.md item that brings
+it.
 """
 
 from __future__ import annotations
@@ -161,9 +165,10 @@ class StandaloneServer:
         the constructor raises unless ``"cpu"`` was asked for.
 
         ``port=None`` serves in-process only (``self.bus``); the gRPC
-        bus (`port`), the wire and HTTP tiers (`wire_port`, `http_port`,
-        `auth_file`) and the worker pool (`workers` / ``BYDB_WORKERS``)
-        raise ``NotImplementedError`` until their slices land."""
+        bus (`port`) and the wire and HTTP tiers (`wire_port`,
+        `http_port`, `auth_file`) raise ``NotImplementedError`` until
+        their slices land.  `workers` (else ``BYDB_WORKERS``, default 0)
+        > 0 spawns that many shard workers on `device`."""
         from banyandb_tpu_torch.obs import SlowQueryRecorder
         from banyandb_tpu_torch.obs.metrics import global_meter
         from banyandb_tpu_torch.utils.envflag import env_float, env_int
@@ -174,11 +179,6 @@ class StandaloneServer:
             raise _waits("the banyandb.*.v1 wire surface", "items 4 and 6")
         if http_port is not None:
             raise _waits("the HTTP gateway", "items 4 and 6")
-        n_workers = (
-            workers if workers is not None else env_int("BYDB_WORKERS", 0)
-        )
-        if n_workers > 0:
-            raise _waits("the multi-process data plane", "item 7")
         self.device = resolve_device(device)
         self.root = Path(root)
         self.registry = SchemaRegistry(self.root)
@@ -190,19 +190,51 @@ class StandaloneServer:
         )
         self.trace = TraceEngine(self.registry, self.root / "data")
         self.property = PropertyEngine(self.registry, self.root / "data")
+        # Multi-process data plane (docs/performance.md): BYDB_WORKERS=N
+        # maps shard ownership to N worker subprocesses on this server's
+        # device — measure/stream/trace writes partition by shard hash
+        # to the owning worker, queries scatter-gather over the
+        # intra-node liaison machinery, and result JSON stays
+        # byte-identical to the N=0 layout.  The parent engines above
+        # then hold no data-plane rows; they keep serving the property
+        # plane and schema state.
+        self.pool = None
+        n_workers = (
+            workers if workers is not None else env_int("BYDB_WORKERS", 0)
+        )
+        if n_workers > 0:
+            from banyandb_tpu_torch.cluster.workers import (
+                PoolMeasureAdapter,
+                PoolStreamAdapter,
+                PoolTraceAdapter,
+                WorkerPool,
+            )
+
+            self.pool = WorkerPool(
+                self.root, self.registry, n_workers, device=self.device
+            )
+            self._pool_measure = PoolMeasureAdapter(self.pool)
+            self._pool_stream = PoolStreamAdapter(self.pool)
+            self._pool_trace = PoolTraceAdapter(self.pool)
         # the process-global registry: engine/executor/fabric instruments
         # (query stages, rpc, lifecycle loops) land in the same exposition
         # as the server's own counters
         self.meter = global_meter()
-        # self-measures ride the data plane (the measure engine's device)
-        self.self_metrics = SelfMeasureSink(self.meter, self.measure)
+        # self-measures ride the data plane: in worker mode they route
+        # through the pool like any other measure write
+        self.self_metrics = SelfMeasureSink(
+            self.meter,
+            self._pool_measure if self.pool is not None else self.measure,
+        )
         # dogfood loop (docs/observability.md "Self-trace"): slow/sampled
         # query span trees persist as trace rows in _monitoring.self_query
-        # through the DB's own trace write path
+        # through the DB's own trace write path (pool-routed like the
+        # self-measures when workers own the data plane)
         from banyandb_tpu_torch.obs.selftrace import SelfTraceSink
 
         self.self_trace = SelfTraceSink(
-            self.trace, self.registry, node="standalone"
+            self._pool_trace if self.pool is not None else self.trace,
+            self.registry, node="standalone",
         )
         # multi-tenant QoS (docs/robustness.md "Multi-tenant QoS"):
         # tenant = group namespace; ingest token buckets + weighted
@@ -338,9 +370,14 @@ class StandaloneServer:
         t0 = time.perf_counter()
         try:
             with tenant_scope(tenant):
-                # batch decode -> columns -> bulk path (identical
-                # semantics to the row path incl. TopN observation)
-                n = self.measure.write_points_bulk(req)
+                if self.pool is not None:
+                    # shard-partitioned forward to the owning workers
+                    # (journaled ack — docs/performance.md)
+                    n = self.pool.write_measure(req)
+                else:
+                    # batch decode -> columns -> bulk path (identical
+                    # semantics to the row path incl. TopN observation)
+                    n = self.measure.write_points_bulk(req)
         finally:
             self.protector.release(size, tenant=tenant)
         ms = (time.perf_counter() - t0) * 1000
@@ -358,7 +395,7 @@ class StandaloneServer:
         hot loop of the wire ingest path."""
         group, name = env["group"], env["name"]
         # row count from base64 length arithmetic — the ts column is
-        # decoded exactly once, inside the codec
+        # decoded exactly once, inside the codec (or the pool's router)
         ts_b64 = env["ts"]
         pad = 2 if ts_b64.endswith("==") else (1 if ts_b64.endswith("=") else 0)
         n = ((len(ts_b64) // 4) * 3 - pad) // 8
@@ -369,11 +406,17 @@ class StandaloneServer:
         t0 = time.perf_counter()
         try:
             with tenant_scope(tenant):
-                # shared wire codec (cluster/serde.py): engine +
-                # memtable consume the decoded codes directly
-                written = self.measure.write_columns(
-                    **serde.write_columns_env_decode(env)
-                )
+                if self.pool is not None:
+                    # vectorized shard routing + per-worker envelope
+                    # slices (cluster/workers.py); the codes stay
+                    # dictionary-encoded end-to-end on both paths
+                    written = self.pool.write_measure_columns(env)
+                else:
+                    # shared wire codec (cluster/serde.py): engine +
+                    # memtable consume the decoded codes directly
+                    written = self.measure.write_columns(
+                        **serde.write_columns_env_decode(env)
+                    )
         finally:
             self.protector.release(size, tenant=tenant)
         ms = (time.perf_counter() - t0) * 1000
@@ -418,7 +461,10 @@ class StandaloneServer:
         with adm, tenant_scope(adm.tenant):
             self._tag_qos(tracer, adm)
             t0 = time.perf_counter()
-            res = self.measure.query(req, tracer=tracer)
+            if self.pool is not None:
+                res = self.pool.query_measure(req, tracer=tracer)
+            else:
+                res = self.measure.query(req, tracer=tracer)
             ms = (time.perf_counter() - t0) * 1000
         tree = tracer.finish()
         self.meter.observe("measure_query_ms", ms)
@@ -543,13 +589,33 @@ class StandaloneServer:
         ar = self.autoreg.stats()
         for k in ("known_signatures", "registered_total", "evicted_total"):
             self.meter.gauge_set(f"autoreg_{k}", float(ar[k]))
-        return {"prometheus": self.meter.prometheus_text()}
+        if self.pool is not None:
+            # pool gauges set BEFORE the render so the scrape that
+            # matters most — every worker down, empty worker_text —
+            # still carries workers_alive/workers_total
+            self.meter.gauge_set(
+                "workers_alive", float(len(self.pool.liaison.alive))
+            )
+            self.meter.gauge_set("workers_total", float(self.pool.n))
+        text = self.meter.prometheus_text()
+        if self.pool is not None:
+            # graft worker expositions with per-worker labels — the
+            # scrapers (obs/prom.py) aggregate across the worker label;
+            # each worker's kernel launches and build cache ride there
+            worker_text = self.pool.metrics_text()
+            if worker_text:
+                text = text + "\n" + worker_text
+        return {"prometheus": text}
 
     def _streamagg(self, env):
         """Streaming-aggregation control surface (query/streamagg.py):
         register/unregister materialized dashboard signatures / read
         window state.  ``origin: "auto"`` marks autoreg registrations
         (budget-evictable; manual ones never are)."""
+        if self.pool is not None:
+            # windows are worker-local per shard: registrations
+            # broadcast (with rejoin catch-up), stats fan out
+            return self.pool.streamagg(env)
         op = env.get("op", "stats")
         if op == "register":
             info = self.measure.streamagg.register(
@@ -576,9 +642,34 @@ class StandaloneServer:
         raise KeyError(f"bad streamagg op {op!r}")
 
     def _streamagg_signature_rows(self) -> list:
-        """Flat signature-stat rows for the autoreg budget."""
+        """Flat signature-stat rows for the autoreg budget (pool mode
+        merges per-worker rows: states/hits sum, last-hit maxes)."""
         st = self._streamagg({"op": "stats"}).get("streamagg") or {}
-        return st.get("signatures", [])
+        if self.pool is None:
+            return st.get("signatures", [])
+        merged: dict = {}
+        for wstats in st.values():
+            for row in (wstats or {}).get("signatures", ()):
+                key = (
+                    row.get("group"), row.get("measure"),
+                    tuple(row.get("key_tags", ())),
+                    tuple(row.get("fields", ())),
+                )
+                cur = merged.get(key)
+                if cur is None:
+                    merged[key] = dict(row)
+                else:
+                    cur["states"] = int(cur.get("states", 0)) + int(
+                        row.get("states", 0)
+                    )
+                    cur["hits"] = int(cur.get("hits", 0)) + int(
+                        row.get("hits", 0)
+                    )
+                    cur["last_hit_ms"] = max(
+                        cur.get("last_hit_ms") or 0,
+                        row.get("last_hit_ms") or 0,
+                    ) or None
+        return list(merged.values())
 
     def _topn(self, env):
         """TopN query over pre-aggregated windows (TopNService analog)."""
@@ -599,6 +690,10 @@ class StandaloneServer:
             ),
         )
         with adm, tenant_scope(adm.tenant):
+            if self.pool is not None:
+                # scatter the node-local ranking; entities are shard-
+                # routed so the concat re-rank is exact (cluster/workers)
+                return self.pool.topn(env)
             ranked = topn_mod.query_topn(
                 self.measure,
                 env["group"],
@@ -642,10 +737,17 @@ class StandaloneServer:
         tenant = self.qos.admit_write(env["group"], len(env["elements"]))
         t0 = time.perf_counter()
         with tenant_scope(tenant):
-            n = self.stream.write(
-                env["group"], env["name"],
-                serde.elements_from_json(env["elements"]),
-            )
+            if self.pool is not None:
+                # elements already ride the liaison wire shape; the pool
+                # routes them by entity-hash shard to the owning workers
+                n = self.pool.write_stream(
+                    env["group"], env["name"], env["elements"]
+                )
+            else:
+                n = self.stream.write(
+                    env["group"], env["name"],
+                    serde.elements_from_json(env["elements"]),
+                )
         self.meter.observe(
             "write_ms", (time.perf_counter() - t0) * 1000, {"model": "stream"}
         )
@@ -660,7 +762,10 @@ class StandaloneServer:
         with adm, tenant_scope(adm.tenant):
             self._tag_qos(tracer, adm)
             t0 = time.perf_counter()
-            res = self.stream.query(req, tracer=tracer)
+            if self.pool is not None:
+                res = self.pool.query_stream(req, tracer=tracer)
+            else:
+                res = self.stream.query(req, tracer=tracer)
             ms = (time.perf_counter() - t0) * 1000
         tree = tracer.finish()
         self._observe_query(
@@ -675,20 +780,31 @@ class StandaloneServer:
         tenant = self.qos.admit_write(env["group"], len(env["spans"]))
         t0 = time.perf_counter()
         with tenant_scope(tenant):
-            n = self.trace.write(
-                env["group"], env["name"],
-                serde.spans_from_json(env["spans"]),
-                ordered_tags=tuple(env.get("ordered_tags", ())),
-            )
+            if self.pool is not None:
+                n = self.pool.write_trace(
+                    env["group"], env["name"], env["spans"],
+                    ordered_tags=tuple(env.get("ordered_tags", ())),
+                )
+            else:
+                n = self.trace.write(
+                    env["group"], env["name"],
+                    serde.spans_from_json(env["spans"]),
+                    ordered_tags=tuple(env.get("ordered_tags", ())),
+                )
         self.meter.observe(
             "write_ms", (time.perf_counter() - t0) * 1000, {"model": "trace"}
         )
         return {"written": n}
 
     def _trace_query(self, env):
-        spans = self.trace.query_by_trace_id(
-            env["group"], env["name"], env["trace_id"]
-        )
+        if self.pool is not None:
+            spans = self.pool.query_trace_by_id(
+                env["group"], env["name"], env["trace_id"]
+            )
+        else:
+            spans = self.trace.query_by_trace_id(
+                env["group"], env["name"], env["trace_id"]
+            )
         return {"spans": serde.spans_to_json(spans)}
 
     def _property_apply(self, env):
@@ -733,13 +849,18 @@ class StandaloneServer:
             self._tag_qos(tracer, adm)
             t0 = time.perf_counter()
             if catalog == "stream":
-                res = self.stream.query(req, tracer=tracer)
+                if self.pool is not None:
+                    res = self.pool.query_stream(req, tracer=tracer)
+                else:
+                    res = self.stream.query(req, tracer=tracer)
             elif catalog == "trace":
                 with tracer.span("execute"):
                     res = self._ql_trace(req, tracer=tracer)
             elif catalog == "property":
                 with tracer.span("execute"):
                     res = self._ql_property(req)
+            elif self.pool is not None:
+                res = self.pool.query_measure(req, tracer=tracer)
             else:
                 res = self.measure.query(req, tracer=tracer)
             ms = (time.perf_counter() - t0) * 1000
@@ -759,7 +880,8 @@ class StandaloneServer:
     def _ql_trace(self, req: QueryRequest, tracer=None) -> QueryResult:
         from banyandb_tpu_torch.query import ql_exec
 
-        return ql_exec.execute_trace_ql(self.trace, req, tracer=tracer)
+        engine = self._pool_trace if self.pool is not None else self.trace
+        return ql_exec.execute_trace_ql(engine, req, tracer=tracer)
 
     def _ql_property(self, req: QueryRequest) -> QueryResult:
         from banyandb_tpu_torch.query import ql_exec
@@ -821,9 +943,14 @@ class StandaloneServer:
     def _snapshot(self, env):
         # flush everything so on-disk state is complete, then report dirs
         flushed = []
-        flushed += self.measure.flush()
-        flushed += self.stream.flush()
-        flushed += self.trace.flush()
+        if self.pool is not None:
+            # worker flushes also trim the parent write journal to the
+            # flush watermark (cluster/workers.py)
+            flushed += self.pool.flush()
+        else:
+            flushed += self.measure.flush()
+            flushed += self.stream.flush()
+            flushed += self.trace.flush()
         self.property.persist()
         self.self_metrics.flush()  # self-measures land in _monitoring
         self.self_trace.flush()  # queued self-query span trees likewise
@@ -894,6 +1021,10 @@ class StandaloneServer:
         self.watchdog.stop()
         if self.pprof is not None:
             self.pprof.stop()
+        if self.pool is not None:
+            # graceful worker shutdown: lifecycle loops stop, engines
+            # close, processes reap (procreg process hygiene)
+            self.pool.stop()
         self.access_log.close()
         # release index mmaps/fds deterministically (fd hygiene)
         self.measure.close()

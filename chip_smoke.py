@@ -93,11 +93,32 @@ before the last line is printed:
    through their topics against the engines' own answers; and a restart
    over the same root that must answer with the same bytes.  One
    ``{"server": ...}`` line;
-14. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
+14. worker path: ``StandaloneServer(root, device="cuda", workers=2,
+   slow_query_ms=0)`` over a fresh root (two shard-worker processes,
+   one shard each, every one a ``DataNode`` on the card that loads the
+   kernel library the parent put in the fleet's build cache): phase
+   13's schema, 4,194,304 points and ``snapshot``, its two BydbQL
+   queries three times each (every reply equal to phase 13's and to
+   numpy; each worker launches ``fused_group_multi``, read from
+   ``pool.metrics_text()``, the parent none); then 65,536 more points,
+   ``kill_worker(0)``: a query in the dead window is ``degraded`` and
+   names the worker, and after the restart's journal replay the TOP 10
+   over all 4,259,840 points equals numpy; ``stop()`` reaps both
+   children.  One ``{"workers": ...}`` line;
+15. rebalance path, on phase 10's cluster after its queries: a third
+   ``DataNode`` on the card joins, ``Rebalancer.plan`` to three nodes
+   and ``apply`` while a second thread writes 65,536 more points
+   through ``Liaison.write_measure``; then phase 10's six queries
+   through the host combine and the 1 x 1 mesh equal numpy over all
+   1,114,112 points, the epoch is one higher and the new node answers a
+   scatter leg.  One ``{"rebalance": ...}`` line;
+16. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a path (4, 5, 6, 8, 10, the
-warm of 11, 12, the queries of 13) is driven and read just after it;
+warm of 11, 12, the queries of 13, 15) is driven and read just after it
+(the workers of 14 count in their own processes: their counts are read
+before and after the queries, and the difference is the path's);
 each kernel of a path must have launched there (the stream path
 launches none of the four kernels: its mask is PyTorch compares on the
 card).  Phases 1-10 run with the precompile registry off
@@ -143,6 +164,8 @@ PATH_KERNELS = {
     "warm": ("fused_group_multi", "widen_narrow"),
     "audit": ("fused_group_multi", "widen_narrow"),
     "server": ("fused_group_multi",),
+    "workers": ("fused_group_multi",),
+    "rebalance": ("fused_group_multi",),
 }
 
 
@@ -1582,19 +1605,43 @@ def device_split(fn) -> tuple:
     return busy, h2d, wall, sorted(keys, reverse=True)[:5]
 
 
-def cluster_path(hk, n_points: int, device: str, root: str) -> dict:
+def close_nodes(nodes) -> None:
+    for dn in nodes:
+        dn.measure.close()
+        dn.stream.close()
+        dn.trace.close()
+
+
+def measure_batch(pts: dict, lo: int, hi: int) -> tuple:
+    """Points [lo, hi) as the DataPointValues Liaison.write_measure takes."""
+    from banyandb_tpu_torch.api import DataPointValue
+
+    svc_vals = ["svc-%04d" % i for i in range(N_SVC)]
+    region_vals = ["r%d" % i for i in range(N_REGION)]
+    ts, sv, rg = (pts[k][lo:hi].tolist() for k in ("ts", "svc", "region"))
+    lat, calls = pts["latency"][lo:hi].tolist(), pts["calls"][lo:hi].tolist()
+    return tuple(
+        DataPointValue(ts[k], {"svc": svc_vals[sv[k]], "region": region_vals[rg[k]]},
+                       {"latency": lat[k], "calls": int(calls[k])}, version=1)
+        for k in range(hi - lo)
+    )
+
+
+def cluster_path(hk, n_points: int, device: str, root: str) -> tuple:
     """Two data nodes on `device` and a liaison over LocalTransport:
     per-point writes through ``Liaison.write_measure``, then each BydbQL
     query through ``Liaison.query_measure`` three times on the one-slot
     mesh of the card and on a 4 x 2 mesh of 8 slots on it, and once
-    through the host combine of the scatter partials; -> the launch
-    counts of those runs.  Afterwards (not counted): a profiled run for
-    the idle share, the same 4 x 2 mesh on CPU slots over the same data
-    nodes, and the numpy oracle."""
+    through the host combine of the scatter partials; -> (the launch
+    counts of those runs, the cluster: its liaison, transport, data
+    nodes (left open for phase 15; close_nodes closes them) and points).
+    Afterwards (not counted): a profiled run for the idle share, the
+    same 4 x 2 mesh on CPU slots over the same data nodes, and the numpy
+    oracle."""
     import torch
 
     from banyandb_tpu_torch import bydbql
-    from banyandb_tpu_torch.api import DataPointValue, WriteRequest
+    from banyandb_tpu_torch.api import WriteRequest
     from banyandb_tpu_torch.cluster import DataNode, Liaison, NodeInfo
     from banyandb_tpu_torch.cluster.rpc import LocalTransport
     from banyandb_tpu_torch.obs.tracer import Tracer
@@ -1610,19 +1657,11 @@ def cluster_path(hk, n_points: int, device: str, root: str) -> dict:
             nodes.append(dn)
             infos.append(NodeInfo(dn.name, transport.register(dn.name, dn.bus)))
     liaison = Liaison(reg, transport, infos)
-    svc_vals = ["svc-%04d" % i for i in range(N_SVC)]
-    region_vals = ["r%d" % i for i in range(N_REGION)]
     build_s = write_s = 0.0
     for lo in range(0, n_points, CLUSTER_BATCH):
         hi = min(n_points, lo + CLUSTER_BATCH)
         t0 = time.perf_counter()
-        ts, sv, rg = (pts[k][lo:hi].tolist() for k in ("ts", "svc", "region"))
-        lat, calls = pts["latency"][lo:hi].tolist(), pts["calls"][lo:hi].tolist()
-        batch = tuple(
-            DataPointValue(ts[k], {"svc": svc_vals[sv[k]], "region": region_vals[rg[k]]},
-                           {"latency": lat[k], "calls": int(calls[k])}, version=1)
-            for k in range(hi - lo)
-        )
+        batch = measure_batch(pts, lo, hi)
         t1 = time.perf_counter()
         check(liaison.write_measure(WriteRequest(ENGINE_GROUP, "service_resp_time", batch))
               == hi - lo, "cluster: write not accepted")
@@ -1710,12 +1749,11 @@ def cluster_path(hk, n_points: int, device: str, root: str) -> dict:
             log(f"  ok  cluster {name}: meshes 1x1 and 4x2 on the card, 4x2 on CPU "
                 f"slots ({cms:.1f} ms) and the host combine agree, and the numpy "
                 "oracle holds")
-    finally:
-        for dn in nodes:
-            dn.measure.close()
-            dn.stream.close()
-            dn.trace.close()
-    return launches
+    except BaseException:
+        close_nodes(nodes)
+        raise
+    return launches, {"liaison": liaison, "transport": transport, "nodes": nodes,
+                      "pts": pts, "root": root}
 
 
 # -- phase 11: cold start against warmed start ----------------------------------
@@ -2066,21 +2104,29 @@ def result_values(doc: dict, res) -> None:
     )
 
 
-def server_oracle(pts: dict, n: int, docs: dict) -> None:
-    """The two answers against plain numpy over the points written."""
+def topn_oracle(pts: dict, top: dict, what: str) -> None:
+    """A TOP 10 reply (mean latency where region != 'r3', by svc) against
+    plain numpy over the points."""
     keep = pts["region"] != 3
     svc = pts["svc"][keep]
     count = np.bincount(svc, minlength=N_SVC)
     mean = np.bincount(svc, weights=pts["latency"][keep], minlength=N_SVC) / count
-    top = docs["topn"]
     want = ["svc-%04d" % i for i in np.argsort(-mean, kind="stable")[:10]]
-    check([g[0] for g in top["groups"]] == want, "server topn: TOP 10 differs from numpy")
+    check([g[0] for g in top["groups"]] == want, f"{what}: TOP 10 differs from numpy")
     check(top["values"]["count"] == [float(count[int(g[4:])]) for g in want],
-          "server topn: counts differ from numpy")
+          f"{what}: counts differ from numpy")
+
+
+def server_oracle(pts: dict, n: int, docs: dict, what: str = "server") -> None:
+    """The two answers against plain numpy over the points written."""
+    topn_oracle(pts, docs["topn"], f"{what} topn")
+    keep = pts["region"] != 3
+    svc = pts["svc"][keep]
+    count = np.bincount(svc, minlength=N_SVC)
     pct = docs["percentile"]
     check(sorted(g[0] for g in pct["groups"]) == ["svc-%04d" % i for i in range(N_SVC)
                                                   if count[i]],
-          "server percentile: group set differs from numpy")
+          f"{what} percentile: group set differs from numpy")
     # each estimate lies in the bucket holding the rank-ceil(qN) order
     # statistic (512 buckets over the f32 range of the rows scanned)
     lat32 = pts["latency"][:n].astype(np.float32)
@@ -2095,7 +2141,7 @@ def server_oracle(pts: dict, n: int, docs: dict) -> None:
         for q, e in zip((0.5, 0.99), row):
             k = max(int(np.ceil(q * len(vals))), 1) - 1
             check(abs(e - vals[k]) <= width + 1e-4,
-                  f"server percentile: p{q} of {grp[0]} = {e}, order statistic {vals[k]}")
+                  f"{what} percentile: p{q} of {grp[0]} = {e}, order statistic {vals[k]}")
 
 
 def server_profile(handle, ql: str) -> dict:
@@ -2191,10 +2237,64 @@ def server_models(handle, srv) -> dict:
     return {"stream_rows": 50, "trace_spans": len(spans), "properties": SERVER_NODES}
 
 
+# concurrent clients (phases 13 and 14): each asks TOP 10s over its own
+# time range, so no partials cache answers and every ask scans
+PROBE_CLIENTS = 2
+PROBE_ASKS = 2
+
+
+def probe_queries(n: int) -> list:
+    """PROBE_CLIENTS x PROBE_ASKS distinct TOP 10 texts (the range ends
+    1, 2, ... ms early)."""
+    top, end = engine_queries(n)["topn"], f"AND {T0 + n - 1} "
+    check(end in top, "probe: the TOP 10 text changed")
+    return [top.replace(end, f"AND {T0 + n - 1 - k} ")
+            for k in range(1, PROBE_CLIENTS * PROBE_ASKS + 1)]
+
+
+def concurrent_probe(handle, n: int, what: str) -> tuple:
+    """PROBE_CLIENTS threads ask the probe queries at once through the
+    bus.  -> (figures: the wall of all asks, each ask's wall and how it
+    was served, asks a second; {ql: its reply's result})."""
+    import threading
+
+    qls = probe_queries(n)
+    walls, docs, served, errors = {}, {}, {}, []
+
+    def client(i):
+        try:
+            for ql in qls[i::PROBE_CLIENTS]:
+                t1 = time.perf_counter()
+                reply = handle("bydbql", {"ql": ql})
+                walls[ql] = (time.perf_counter() - t1) * 1e3
+                docs[ql], served[ql] = reply["result"], reply["served"]
+        except BaseException as e:  # noqa: BLE001 - raised after the join
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,), name=f"probe-{i}")
+               for i in range(PROBE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = (time.perf_counter() - t0) * 1e3
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"{what} probe: {errors!r}")
+    check(all(not d.get("degraded") and d["groups"] for d in docs.values()),
+          f"{what} probe: a degraded or empty answer")
+    fig = {"clients": PROBE_CLIENTS, "asks": len(qls), "wall_ms": wall,
+           "ask_ms": [walls[q] for q in qls], "served": [served[q] for q in qls],
+           "asks_per_s": len(qls) / (wall / 1e3)}
+    log(f"  {what} {PROBE_CLIENTS} concurrent clients, {len(qls)} TOP 10 asks: {fig}")
+    return fig, docs
+
+
 def server_path(hk, n_points: int, device: str, root: str, want: dict) -> tuple:
     """Phase 13: StandaloneServer driven over its bus on `device`; `want`
     holds phase 6's results.  -> (the launch counts of the queries, the
-    figures of the {"server": ...} line)."""
+    figures of the {"server": ...} line, {query name or probe text: its
+    reply's result})."""
     from banyandb_tpu_torch.obs import prom
     from banyandb_tpu_torch.query import precompile
     from banyandb_tpu_torch.server import StandaloneServer
@@ -2376,6 +2476,8 @@ def server_path(hk, n_points: int, device: str, root: str, want: dict) -> tuple:
         # 6. the other models through their topics
         fig["models"] = server_models(handle, srv)
         log(f"  ok  server stream, trace and property rounds: {fig['models']}")
+        fig["probe"], probe_docs = concurrent_probe(handle, n_points, "server")
+        docs.update(probe_docs)
 
         # 7. restart over the same root
         fig["pressure_captures"] = (srv.pressure_profiler.captured
@@ -2398,7 +2500,7 @@ def server_path(hk, n_points: int, device: str, root: str, want: dict) -> tuple:
         log(f"  ok  server restart: reopened in {fig['reopen_s']!r} s (warm joined at "
             f"{fig['reopen_warm_s']!r} s); first queries {fig['restart_first_ms']!r} ms, "
             "byte-identical")
-        return launches, fig
+        return launches, fig, docs
     finally:
         if srv is not None:
             srv.stop()
@@ -2407,6 +2509,402 @@ def server_path(hk, n_points: int, device: str, root: str, want: dict) -> tuple:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+# -- phase 14: the worker path ---------------------------------------------------
+
+WORKERS = 2
+# points written after the queries and before the kill: in the parent's
+# journal and the workers' memtables only, until the replay
+WORKERS_EXTRA = 1 << 16
+WORKERS_ENV = {
+    # no plan warm in the parent (its launches would mix with the
+    # queries') nor in the workers, which inherit the environment
+    "BYDB_PRECOMPILE": "0",
+    # as in phase 13: no materialized windows, no self-measure flush
+    # beside the timed queries
+    "BYDB_AUTOREG": "0",
+    "BYDB_SELF_MEASURE_INTERVAL_S": "3600",
+}
+
+
+def doc_ns(doc: dict):
+    """A reply's result as same_values takes it."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(groups=doc["groups"], values=doc["values"],
+                           rep_tags=doc.get("rep_tags") or {})
+
+
+def worker_gauges(pool, metric: str, **labels) -> dict:
+    """{worker: value} of one gauge of the workers' merged exposition."""
+    from banyandb_tpu_torch.obs import prom
+
+    out = {}
+    for name, lbls, value in prom.parse_exposition(pool.metrics_text()):
+        if name == "banyandb_" + metric and all(lbls.get(k) == v for k, v in labels.items()):
+            out[lbls["worker"]] = value
+    return out
+
+
+def worker_launches(hk, pool) -> dict:
+    """{worker: {kernel: launches}} read from the workers' own counts."""
+    out: dict = {}
+    for k in hk.LAUNCHES:
+        for w, v in worker_gauges(pool, "kernel_launches", kernel=k).items():
+            out.setdefault(w, {})[k] = int(v)
+    return out
+
+
+def shifted_points(n: int, seed: int, start: int) -> dict:
+    """n fresh points whose timestamps follow `start` earlier ones."""
+    pts = make_points(n, seed)
+    pts["ts"] = pts["ts"] + start
+    return pts
+
+
+def joined(a: dict, b: dict) -> dict:
+    return {k: np.concatenate([a[k], b[k]]) for k in a}
+
+
+def workers_path(hk, n_points: int, device: str, root: str, want: dict) -> tuple:
+    """Phase 14: StandaloneServer(workers=2) on `device`; `want` holds
+    phase 13's replies (its two queries and its probe's).  -> (the
+    workers' launch counts over the queries,
+    summed over the workers, the figures of the {"workers": ...} line)."""
+    from banyandb_tpu_torch.sanitize import leaks
+    from banyandb_tpu_torch.server import StandaloneServer
+    from banyandb_tpu_torch.utils import procreg
+
+    fig: dict = {"workers": WORKERS, "points": n_points, "envelope_points": SERVER_BATCH}
+    procs_before = procreg.snapshot()
+    saved = {k: os.environ.get(k) for k in WORKERS_ENV}
+    os.environ.update(WORKERS_ENV)
+    srv = None
+    try:
+        t0 = time.perf_counter()
+        srv = StandaloneServer(root, device=device, workers=WORKERS, slow_query_ms=0)
+        srv.start()
+        pool = srv.pool
+        fig["spawn_s"] = time.perf_counter() - t0
+        check(len(procreg.snapshot() - procs_before) == WORKERS,
+              "workers: the children are not registered in procreg")
+        fig["worker_device"] = {c.name: c.ready_info["device"] for c in pool._clients}
+        fig["boot_compile_cache"] = {
+            c.name: {k: c.ready_info["compile_cache"][k] for k in ("builds", "loads")}
+            for c in pool._clients}
+        log(f"  {WORKERS} workers ready in {fig['spawn_s']!r} s on "
+            f"{fig['worker_device']}; build cache at boot {fig['boot_compile_cache']}")
+        if device == "cuda":
+            for w, cc in fig["boot_compile_cache"].items():
+                check(cc == {"builds": 0, "loads": 1},
+                      f"workers: {w} did not load the parent's library: {cc}")
+
+        def handle(topic, env):
+            return srv.bus.handle(topic, env)
+
+        server_schema(handle)
+        pts = make_points(n_points, SEED + 1)
+        write_s = 0.0
+        for lo in range(0, n_points, SERVER_BATCH):
+            env = columns_envelope(pts, lo, min(lo + SERVER_BATCH, n_points))
+            t1 = time.perf_counter()
+            reply = handle("measure-write-cols", env)
+            write_s += time.perf_counter() - t1
+            check(reply == {"written": min(SERVER_BATCH, n_points - lo)},
+                  f"workers write: {reply}")
+        t1 = time.perf_counter()
+        snap = handle("snapshot", {})
+        fig["snapshot_s"] = time.perf_counter() - t1
+        fig["ingest_points_per_s"] = n_points / write_s
+        log(f"  wrote {n_points} points in {n_points // SERVER_BATCH} measure-write-cols "
+            f"envelopes: {write_s!r} s ({fig['ingest_points_per_s']!r} points/s); "
+            f"snapshot {fig['snapshot_s']!r} s ({len(snap['flushed'])} parts flushed)")
+
+        texts = engine_queries(n_points)
+        before = worker_launches(hk, pool)
+        hk.reset_launches()
+        walls, docs, served = {}, {}, {}
+        traced = None
+        for name, ql in texts.items():
+            walls[name], served[name] = [], []
+            for i in range(3):
+                # the first TOP 10 carries its span tree (each worker's
+                # first scan on the card, grafted under its scatter leg)
+                first_top = name == "topn" and i == 0
+                t1 = time.perf_counter()
+                reply = handle("bydbql", {"ql": ql, "trace": first_top})
+                walls[name].append((time.perf_counter() - t1) * 1e3)
+                served[name].append(reply["served"])
+                if first_top:
+                    traced = reply["result"].pop("trace")
+                check(not reply["result"].get("degraded"), f"workers {name}: degraded")
+                if i == 0:
+                    docs[name] = reply["result"]
+                else:
+                    check(json.dumps(reply["result"]) == json.dumps(docs[name]),
+                          f"workers {name}: repeat run differs")
+            same_values(doc_ns(docs[name]), doc_ns(want[name]), {"calls"},
+                        f"workers {name} vs phase 13")
+            log(f"  workers {name} wall ms {walls[name]!r}, served {served[name]}; "
+                "agrees with phase 13")
+        parent = dict(hk.LAUNCHES)
+        after = worker_launches(hk, pool)
+        per_worker = {w: {k: after[w][k] - before.get(w, {}).get(k, 0) for k in after[w]}
+                      for w in after}
+        launches = {k: sum(c[k] for c in per_worker.values()) for k in hk.LAUNCHES}
+        log(f"  kernel launches over the {len(texts)} queries x 3 runs: workers "
+            f"{per_worker}, parent {parent}")
+        check(parent == {k: 0 for k in parent},
+              f"workers: the parent launched kernels for the workers' queries: {parent}")
+        for w in (c.name for c in pool._clients):
+            check(device != "cuda" or per_worker.get(w, {}).get("fused_group_multi", 0) > 0,
+                  f"workers: {w} did not launch fused_group_multi")
+        server_oracle(pts, n_points, docs, "workers")
+        log("  ok  workers: TOP 10, counts and percentiles agree with phase 13 and numpy")
+        fig["walls_ms"] = walls
+        fig["served"] = served
+        fig["first_vs_later_ms"] = {name: [w[0], min(w[1:])] for name, w in walls.items()}
+        fig["launches"] = per_worker
+        spans = {}
+        for c in pool._clients:
+            leg = find_span(traced["span_tree"], f"scatter:{c.name}")
+            check(leg is not None, f"workers: no scatter:{c.name} span in the trace")
+            spans[c.name] = {s: (find_span(leg, s) or {}).get("duration_ms")
+                             for s in ("part_gather", "gather", "reduce")}
+        fig["spans_ms"] = spans
+        log(f"  workers' first TOP 10 (traced), each worker's grafted spans (ms): {spans}")
+        fig["compile_cache"] = {
+            w: {k: worker_gauges(pool, f"compile_cache_{k}")[w] for k in ("builds", "loads")}
+            for w in spans}
+        fig["probe"], probe_docs = concurrent_probe(handle, n_points, "workers")
+        for ql, doc in probe_docs.items():
+            same_values(doc_ns(doc), doc_ns(want[ql]), {"calls"}, "workers probe vs phase 13")
+        log("  ok  workers probe: every answer agrees with phase 13's")
+
+        # the kill: acked points in the journal, a degraded window, replay
+        extra = shifted_points(WORKERS_EXTRA, SEED + 7, n_points)
+        reply = handle("measure-write-cols", columns_envelope(extra, 0, WORKERS_EXTRA))
+        check(reply == {"written": WORKERS_EXTRA}, f"workers extra write: {reply}")
+        n_all = n_points + WORKERS_EXTRA
+        top_all = engine_queries(n_all)["topn"]
+        old = pool._clients[0]
+        t_kill = time.perf_counter()
+        pool.kill_worker(0)
+        dead = None
+        while dead is None and time.perf_counter() - t_kill < 120:
+            t1 = time.perf_counter()
+            res = handle("bydbql", {"ql": top_all})["result"]
+            if res.get("degraded"):
+                dead = res
+                fig["dead_window_ms"] = (time.perf_counter() - t1) * 1e3
+            elif pool._clients[0] not in (None, old):
+                break
+        check(dead is not None, "workers: no degraded answer in the dead window")
+        check(dead["unavailable_nodes"] == [old.name],
+              f"workers: the dead window names {dead['unavailable_nodes']}")
+        while (pool._clients[0] in (None, old) or old.name not in pool.liaison.alive) \
+                and time.perf_counter() - t_kill < 300:
+            time.sleep(0.05)
+        fig["restart_s"] = time.perf_counter() - t_kill
+        check(pool._clients[0] not in (None, old), "workers: w000 was not restarted")
+        fig["restart_compile_cache"] = {
+            k: pool._clients[0].ready_info["compile_cache"][k] for k in ("builds", "loads")}
+        t1 = time.perf_counter()
+        res = handle("bydbql", {"ql": top_all})["result"]
+        fig["after_restart_ms"] = (time.perf_counter() - t1) * 1e3
+        check(not res.get("degraded"), f"workers: degraded after the restart: {res}")
+        topn_oracle(joined(pts, extra), res, "workers after the kill")
+        log(f"  ok  workers kill: the dead window answered degraded naming "
+            f"{dead['unavailable_nodes']}; w000 back in {fig['restart_s']!r} s (build "
+            f"cache {fig['restart_compile_cache']}); the TOP 10 over {n_all} points "
+            f"agrees with numpy ({fig['after_restart_ms']!r} ms)")
+        if device == "cuda":
+            check(fig["restart_compile_cache"] == {"builds": 0, "loads": 1},
+                  "workers: the restarted w000 did not load the library")
+        fig["restarts"] = pool.restarts
+    finally:
+        if srv is not None:
+            srv.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(procreg.snapshot() - procs_before == frozenset(),
+          "workers: stop() left a child registered")
+    check(leaks.leaked_processes(procs_before, grace_s=0.1) == [],
+          "workers: stop() left a child behind")
+    log("  ok  workers: stop() reaped every child (procreg, leaks)")
+    return launches, fig
+
+
+# -- phase 15: the rebalance path ----------------------------------------------
+
+REBALANCE_EXTRA = 1 << 16
+REBALANCE_BATCH = 1 << 13
+
+
+class NodeList:
+    """A discovery source over a fixed node list (``Liaison.refresh_nodes``
+    re-reads it: the addr book widens, the placement does not move)."""
+
+    def __init__(self, nodes):
+        self._nodes = list(nodes)
+
+    def refresh(self) -> bool:
+        return True
+
+    def nodes(self):
+        return list(self._nodes)
+
+
+def rebalance_path(hk, cluster: dict, device: str) -> tuple:
+    """Phase 15: a third data node on `device` joins phase 10's cluster
+    and the Rebalancer moves shards to it while a second thread writes.
+    -> (the launch counts of the queries after the move, the figures of
+    the {"rebalance": ...} line)."""
+    import threading
+
+    from banyandb_tpu_torch import bydbql
+    from banyandb_tpu_torch.api import WriteRequest
+    from banyandb_tpu_torch.cluster import DataNode, NodeInfo
+    from banyandb_tpu_torch.cluster.rebalance import Rebalancer
+    from banyandb_tpu_torch.cluster.rpc import TransportError
+    from banyandb_tpu_torch.obs.tracer import Tracer
+    from banyandb_tpu_torch.parallel import make_mesh
+
+    liaison, transport, nodes = cluster["liaison"], cluster["transport"], cluster["nodes"]
+    pts = cluster["pts"]
+    n_points = len(pts["ts"])
+    fig: dict = {"points_before": n_points, "extra_points": REBALANCE_EXTRA}
+    epoch0 = liaison.placement.epoch
+    reg = engine_registry(os.path.join(cluster["root"], "n3"), shard_num=4)
+    dn = DataNode("data-2", reg, os.path.join(cluster["root"], "n3", "data"), device=device)
+    nodes.append(dn)
+    liaison.discovery = NodeList(
+        list(liaison.selector.nodes) + [NodeInfo(dn.name, transport.register(dn.name, dn.bus))])
+    check(liaison.refresh_nodes(), "rebalance: the join was not read")
+    reb = Rebalancer(liaison)
+    t0 = time.perf_counter()
+    plan = reb.plan()
+    fig["plan_ms"] = (time.perf_counter() - t0) * 1e3
+    fig["moves"] = [m.to_json() for m in plan.moves]
+    check(any(dn.name in m.add for m in plan.moves), f"rebalance: no move to {dn.name}")
+    log(f"  plan to {list(plan.target_nodes)} in {fig['plan_ms']!r} ms: {fig['moves']}")
+
+    extra = shifted_points(REBALANCE_EXTRA, SEED + 9, n_points)
+    writer = {"acked": 0, "retries": 0, "error": None}
+
+    def write_beside():
+        try:
+            for lo in range(0, REBALANCE_EXTRA, REBALANCE_BATCH):
+                batch = measure_batch(extra, lo, lo + REBALANCE_BATCH)
+                while True:
+                    try:
+                        n = liaison.write_measure(
+                            WriteRequest(ENGINE_GROUP, "service_resp_time", batch))
+                        break
+                    except TransportError as e:  # fenced at the cutover: re-route
+                        if e.kind != "stale_epoch":
+                            raise
+                        writer["retries"] += 1
+                writer["acked"] += n
+        except BaseException as e:  # noqa: BLE001 - reported by the phase
+            writer["error"] = e
+
+    thread = threading.Thread(target=write_beside, name="rebalance-writer")
+    tr = Tracer("rebalance")
+    counting = liaison.transport = SyncBytes(transport)
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        stats = reb.apply(plan, tracer=tr)
+    finally:
+        fig["apply_ms"] = (time.perf_counter() - t0) * 1e3
+        thread.join(timeout=600)
+        liaison.transport = transport
+    check(not thread.is_alive(), "rebalance: the writer did not finish")
+    check(writer["error"] is None, f"rebalance: the writer failed: {writer['error']!r}")
+    check(writer["acked"] == REBALANCE_EXTRA, f"rebalance: {writer['acked']} acked")
+    tree = tr.finish()
+    fig["stats"] = stats
+    fig["writer_retries"] = writer["retries"]
+    fig["span_ms"] = {s: [sp["duration_ms"] for sp in find_spans(tree, s)]
+                      for s in ("schema_sync", "dual_route", "ship:bulk", "ship:delta",
+                                "cutover")}
+    check(stats.get("ok") and stats["parts_moved"] > 0, f"rebalance: {stats}")
+    check(liaison.placement.epoch == epoch0 + 1,
+          f"rebalance: epoch {liaison.placement.epoch}, was {epoch0}")
+    check(all(d.epoch_record.epoch == epoch0 + 1 for d in nodes),
+          "rebalance: a node is not fenced at the new epoch")
+    fig["bytes_shipped"] = counting.bytes
+    log(f"  apply in {fig['apply_ms']!r} ms beside {REBALANCE_EXTRA} points written "
+        f"({writer['retries']} fenced retries): {stats}; spans ms {fig['span_ms']}")
+    for d in nodes:
+        d.measure.flush()
+
+    n_all = n_points + REBALANCE_EXTRA
+    pts_all = joined(pts, extra)
+    queries = cluster_queries(n_all)
+    reqs = {name: bydbql.parse(ql) for name, (ql, _m) in queries.items()}
+    mesh = make_mesh(1, 1, devices=[device])
+    engines = {d.name: d.measure for d in nodes}
+    walls = {}
+    hk.reset_launches()
+    for name, req in reqs.items():
+        t0 = time.perf_counter()
+        host = liaison.query_measure(req)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        liaison.enable_mesh_fastpath(mesh, engines)
+        t0 = time.perf_counter()
+        on_mesh = liaison.query_measure(req)
+        mesh_ms = (time.perf_counter() - t0) * 1e3
+        check(liaison.mesh_exec.executions == (1 if queries[name][1] else 0),
+              f"rebalance {name}: {liaison.mesh_exec.executions} mesh executions")
+        del liaison.mesh_exec
+        walls[name] = {"host_ms": host_ms, "mesh_1x1_ms": mesh_ms}
+        for res, what in ((host, "host combine"), (on_mesh, "mesh 1x1")):
+            check(not res.degraded, f"rebalance {name} {what}: degraded")
+            cluster_oracle(pts_all, name, res)
+        cluster_same(on_mesh, host, f"rebalance {name}: mesh vs host combine",
+                     host=queries[name][1])
+    launches = dict(hk.LAUNCHES)
+    fig["walls_ms"] = walls
+    traced = liaison.query_measure(dataclasses.replace(reqs["count"], trace=True))
+    leg = find_span(traced.trace["span_tree"], f"scatter:{dn.name}")
+    check(leg is not None, f"rebalance: {dn.name} answered no scatter leg")
+    log(f"  ok  rebalance: the six queries over {n_all} points agree with numpy on the "
+        f"host combine and the 1x1 mesh; epoch {liaison.placement.epoch}; {dn.name} "
+        f"answers a scatter leg; walls ms {walls}; launches {launches}")
+    return launches, fig
+
+
+def find_spans(tree: dict, name: str) -> list:
+    out = [tree] if tree.get("name") == name else []
+    for c in tree.get("children", ()):
+        out += find_spans(c, name)
+    return out
+
+
+class SyncBytes:
+    """The liaison's transport, counting the part bytes that ride the
+    sync topic (whole-part bundles and 1 MiB chunks, base64 decoded)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.bytes = 0
+
+    def call(self, addr, topic, envelope, timeout=30.0):
+        if topic == "sync-part":
+            blobs = list((envelope.get("files") or {}).values())
+            if envelope.get("data"):
+                blobs.append(envelope["data"])
+            self.bytes += sum(len(b) * 3 // 4 - b[-2:].count("=") for b in blobs)
+        return self.inner.call(addr, topic, envelope, timeout=timeout)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
 
 
 def main() -> int:
@@ -2470,19 +2968,33 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="bydb-smoke-models-") as root:
         phase("[9] host-only models: TraceEngine and PropertyEngine")
         host_models_phase(root)
-    with tempfile.TemporaryDirectory(prefix="bydb-smoke-cluster-") as root:
-        phase(f"[10] cluster path: {CLUSTER_N} points through a liaison and two data nodes")
-        paths["cluster"] = cluster_path(hk, CLUSTER_N, "cuda", root)
-    with engine_dir:
-        phase("[11] cold start against warmed start: three fresh processes")
-        paths["warm"] = warm_phase(engine_root, engine_card)
-    phase("[12] kernel audit on the card")
-    paths["audit"] = audit_phase()
-    with tempfile.TemporaryDirectory(prefix="bydb-smoke-server-") as root:
-        phase(f"[13] server path: {N_POINTS} points through StandaloneServer's bus")
-        paths["server"], server_fig = server_path(hk, N_POINTS, "cuda", root, engine_card)
-    print(json.dumps({"server": server_fig}), flush=True)
-    phase("[14] all phases done")
+    # phase 10's cluster stays until phase 15 has moved its shards
+    cluster_dir = tempfile.TemporaryDirectory(prefix="bydb-smoke-cluster-")
+    phase(f"[10] cluster path: {CLUSTER_N} points through a liaison and two data nodes")
+    paths["cluster"], cluster = cluster_path(hk, CLUSTER_N, "cuda", cluster_dir.name)
+    try:
+        with engine_dir:
+            phase("[11] cold start against warmed start: three fresh processes")
+            paths["warm"] = warm_phase(engine_root, engine_card)
+        phase("[12] kernel audit on the card")
+        paths["audit"] = audit_phase()
+        with tempfile.TemporaryDirectory(prefix="bydb-smoke-server-") as root:
+            phase(f"[13] server path: {N_POINTS} points through StandaloneServer's bus")
+            paths["server"], server_fig, server_docs = server_path(
+                hk, N_POINTS, "cuda", root, engine_card)
+        print(json.dumps({"server": server_fig}), flush=True)
+        with tempfile.TemporaryDirectory(prefix="bydb-smoke-workers-") as root:
+            phase(f"[14] worker path: {N_POINTS} points through {WORKERS} shard workers")
+            paths["workers"], workers_fig = workers_path(
+                hk, N_POINTS, "cuda", root, server_docs)
+        print(json.dumps({"workers": workers_fig}), flush=True)
+        phase("[15] rebalance path: a third data node joins phase 10's cluster")
+        paths["rebalance"], rebalance_fig = rebalance_path(hk, cluster, "cuda")
+        print(json.dumps({"rebalance": rebalance_fig}), flush=True)
+    finally:
+        close_nodes(cluster["nodes"])
+        cluster_dir.cleanup()
+    phase("[16] all phases done")
     for path, kernels in PATH_KERNELS.items():
         for k in kernels:
             check(paths[path][k] > 0, f"{k}: not launched on the {path} path")

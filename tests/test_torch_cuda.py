@@ -681,3 +681,74 @@ def test_server_on_card_equals_cpu_server(dev, tmp_path, monkeypatch):
             srv.stop()
     assert answers["card"] == answers["cpu"]
     assert all(a["groups"] for a in answers["card"])
+
+
+def test_worker_server_on_card_loads_the_library_and_launches(dev, tmp_path, monkeypatch):
+    """StandaloneServer(workers=1) on the card: the parent puts the
+    kernel library into the fleet's build cache, the worker loads it (no
+    nvcc build), runs on the card, launches fused_group_multi for the
+    measure queries (its own count, read from the merged exposition) and
+    answers like a workers=0 server on the card; the parent launches
+    nothing for those queries."""
+    import base64
+
+    from banyandb_tpu_torch.api import schema as S
+    from banyandb_tpu_torch.obs import prom
+    from banyandb_tpu_torch.server import StandaloneServer
+
+    monkeypatch.setenv("BYDB_AUTOREG", "0")
+    t0, n, n_svc = 1_700_000_000_000, 1 << 17, 64
+    rng = np.random.default_rng(6)
+
+    def b64(a):
+        return base64.b64encode(np.ascontiguousarray(a).tobytes()).decode()
+
+    svc = rng.integers(0, n_svc, n).astype("<i4")
+    value = rng.integers(0, 1000, n).astype("<f8")
+    envelopes = [
+        {"group": "sw", "name": "cpm", "ts": b64((t0 + np.arange(lo, lo + 65536)).astype("<i8")),
+         "tags": {"svc": {"dict": [f"s{i}" for i in range(n_svc)], "codes": b64(svc[lo:lo + 65536])}},
+         "fields": {"value": b64(value[lo:lo + 65536])}}
+        for lo in range(0, n, 65536)
+    ]
+    queries = [
+        f"SELECT sum(value) FROM MEASURE cpm IN sw TIME BETWEEN {t0} AND {t0 + n} GROUP BY svc",
+        f"SELECT value FROM MEASURE cpm IN sw TIME BETWEEN {t0} AND {t0 + n} "
+        "GROUP BY svc TOP 5 BY value",
+    ]
+    answers = {}
+    for workers in (0, 1):
+        srv = StandaloneServer(tmp_path / f"w{workers}", device=dev, workers=workers)
+        srv.start()
+        try:
+            for kind, obj in (
+                ("group", S.Group("sw", S.Catalog.MEASURE, S.ResourceOpts(shard_num=2))),
+                ("measure", S.Measure(
+                    group="sw", name="cpm", tags=(S.TagSpec("svc", S.TagType.STRING),),
+                    fields=(S.FieldSpec("value", S.FieldType.INT),),
+                    entity=S.Entity(("svc",)))),
+            ):
+                srv.bus.handle("registry", {"op": "create", "kind": kind,
+                                            "item": S._to_jsonable(obj)})
+            for env in envelopes:
+                assert srv.bus.handle("measure-write-cols", env) == {"written": 65536}
+            srv.bus.handle("snapshot", {})
+            before = dict(hk.LAUNCHES)
+            answers[workers] = [srv.bus.handle("bydbql", {"ql": ql})["result"]
+                                for ql in queries]
+            if workers:
+                assert hk.LAUNCHES == before, "the parent launched for the workers"
+                w = srv.pool._clients[0]
+                assert w.ready_info["device"].startswith("cuda")
+                text = srv.bus.handle("metrics", {})["prometheus"]
+
+                def gauge(name, **labels):
+                    return prom.gauge_value(text, "banyandb_" + name, dict(labels, worker="w000"))
+
+                assert gauge("compile_cache_builds") == 0.0
+                assert gauge("compile_cache_loads") == 1.0
+                assert gauge("kernel_launches", kernel="fused_group_multi") >= len(queries)
+        finally:
+            srv.stop()
+    assert answers[1] == answers[0]
+    assert all(a["groups"] for a in answers[0])

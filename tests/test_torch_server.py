@@ -428,24 +428,37 @@ def test_server_needs_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("kw", [
     {"port": 17912}, {"wire_port": 17914}, {"http_port": 17913},
-    {"auth_file": "users.yaml"}, {"workers": 2},
+    {"auth_file": "users.yaml"}, {"workers": 2, "wire_port": 17914},
 ], ids=["port", "wire_port", "http_port", "auth_file", "workers"])
 def test_tiers_that_wait_raise(tmp_path, kw):
+    """Each tier that waits raises; with workers asked too, the refusal
+    comes before any worker process is spawned."""
     from banyandb_tpu_torch.server import StandaloneServer
+    from banyandb_tpu_torch.utils import procreg
 
+    before = procreg.snapshot()
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         StandaloneServer(tmp_path, device="cpu", **kw)
+    assert procreg.snapshot() == before
 
 
 def test_workers_env_and_command_line_raise(tmp_path, monkeypatch):
+    """``BYDB_WORKERS`` sizes the worker pool (the multi-process data
+    plane, tests/test_torch_workers.py); the gRPC address and the
+    command line still raise."""
     from banyandb_tpu_torch import server
 
-    monkeypatch.setenv("BYDB_WORKERS", "2")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        server.StandaloneServer(tmp_path, device="cpu")
-    monkeypatch.setenv("BYDB_WORKERS", "0")
-    srv = server.StandaloneServer(tmp_path, device="cpu")
+    monkeypatch.setenv("BYDB_WORKERS", "1")
+    srv = server.StandaloneServer(tmp_path / "w1", device="cpu")
     try:
+        assert srv.pool is not None and srv.pool.n == 1
+        assert srv.pool._clients[0].ready_info["device"] == "cpu"
+    finally:
+        srv.stop()
+    monkeypatch.setenv("BYDB_WORKERS", "0")
+    srv = server.StandaloneServer(tmp_path / "w0", device="cpu")
+    try:
+        assert srv.pool is None
         with pytest.raises(NotImplementedError, match="item 4"):
             srv.addr
     finally:

@@ -370,6 +370,18 @@ _ISOLATION = textwrap.dedent(
             srv.bus.handle(topic, {})
         assert srv.bus.handle("fodc-pprof", {"kinds": ["threads"]})["profiles"]
         srv.stop()
+
+    # the multi-process data plane and the elastic cluster
+    from banyandb_tpu_torch.cluster import rebalance, workers
+    from banyandb_tpu_torch.cluster.placement import PlacementMap
+    from banyandb_tpu_torch.sanitize import leaks
+    from banyandb_tpu_torch.utils import procreg
+    import banyandb_tpu_torch.sanitize
+    plan = rebalance.plan_rebalance(PlacementMap.initial(["a", "b"], 0), ["a", "b", "c"],
+                                    num_shards=3)
+    assert plan.new_epoch == 2 and plan.moves, plan
+    assert leaks.leaked_processes(procreg.snapshot(), grace_s=0.0) == []
+    assert workers.relabel_exposition("x 1", {"worker": "w0"}) == 'x{worker="w0"} 1'
     bad = sorted(k for k in sys.modules
                  if k in ("jax", "grpc") or k.startswith(
                      ("jax.", "banyandb_tpu.", "grpc.", "google.protobuf")))
