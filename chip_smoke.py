@@ -112,11 +112,35 @@ before the last line is printed:
    through the host combine and the 1 x 1 mesh equal numpy over all
    1,114,112 points, the epoch is one higher and the new node answers a
    scatter leg.  One ``{"rebalance": ...}`` line;
-16. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
+16. lifecycle path: the measure configuration at 1,048,576 points over
+   four day segments (262,144 a day, one ``write_columns`` batch and a
+   flush a day: eight parts) in a server root on the card, then five
+   steps, each asking its BydbQL (phase 6's TOP 10 and p50/p99,
+   count/sum/min/max of calls by svc) with the serving caches emptied
+   (they key a part by its path, and a restored segment comes back at
+   the same one), against numpy: ``lifecycle.migrate`` archives the
+   first two days (the answers then cover days 3-4) and
+   ``restore_segment`` brings them back; ``migration`` analyzes,
+   plans a rewrite of all eight parts, copies them into a fresh root
+   and verifies it, and a fresh engine answers over it; ``backup`` to a
+   local directory and ``restore`` into an empty root (and a refused
+   restore into the live one), a fresh engine answering; a hot and a
+   warm ``DataNode`` and a liaison (stages hot and warm): 262,144
+   points over two days, ``TierMigrator`` ships day 1 to the warm node,
+   the TOP 10 and count/sum by svc through ``Liaison.query_measure``
+   with stages warm, hot and both, a second run ships nothing; and
+   ``McpServer`` over the first root answers ``execute_bydbql`` of the
+   TOP 10.  Every answer after a move is byte-identical to the one
+   before it, and ``fused_group_multi`` launches in each step (on the
+   warm node in the tier step).  One ``{"lifecycle": ...}`` line (each
+   step's wall, bytes moved, launches, and the device busy and wall ms
+   of one cold TOP 10 after each move);
+17. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a path (4, 5, 6, 8, 10, the
-warm of 11, 12, the queries of 13, 15) is driven and read just after it
+warm of 11, 12, the queries of 13, 15, each step of 16) is driven and
+read just after it
 (the workers of 14 count in their own processes: their counts are read
 before and after the queries, and the difference is the path's);
 each kernel of a path must have launched there (the stream path
@@ -166,6 +190,8 @@ PATH_KERNELS = {
     "server": ("fused_group_multi",),
     "workers": ("fused_group_multi",),
     "rebalance": ("fused_group_multi",),
+    "lifecycle": ("fused_group_multi",),
+    "tier": ("fused_group_multi",),
 }
 
 
@@ -959,15 +985,20 @@ def decode_path(hk, part, device: str) -> dict:
 ENGINE_GROUP = "sw"
 
 
-def engine_registry(root: str, shard_num: int = 2):
+def engine_registry(root: str, shard_num: int = 2, stages: tuple = (),
+                    schema_dir: str = "schema"):
+    """Group ``sw`` (day segments, `stages`) and the measure, persisted
+    under ``root/schema_dir`` (``""``: ``root`` itself, a server root's
+    layout)."""
     from banyandb_tpu_torch.api import (
         Catalog, Entity, FieldSpec, FieldType, Group, Measure, ResourceOpts,
         SchemaRegistry, TagSpec, TagType,
     )
 
-    reg = SchemaRegistry(os.path.join(root, "schema"))
+    reg = SchemaRegistry(os.path.join(root, schema_dir))
     reg.create_group(
-        Group(ENGINE_GROUP, Catalog.MEASURE, ResourceOpts(shard_num=shard_num))
+        Group(ENGINE_GROUP, Catalog.MEASURE,
+              ResourceOpts(shard_num=shard_num, stages=stages))
     )
     reg.create_measure(
         Measure(
@@ -1026,24 +1057,16 @@ def same_values(a, b, exact: set, what: str) -> None:
         check(ok, f"{what}: {k} differs")
 
 
-def engine_path(hk, n_points: int, device: str, root: str) -> tuple:
-    """Write through MeasureEngine.write_columns, query from BydbQL on
-    `device`; -> (the launch counts of the path (the CPU engine's runs
-    come after they are read), {query name: the card's first result})."""
-    from banyandb_tpu_torch import bydbql
+def write_batches(eng, pts: dict, per_batch: int) -> float:
+    """write_columns + flush, one batch of `per_batch` points at a time;
+    -> seconds."""
     from banyandb_tpu_torch.models.measure import DictColumn as EngineDict
-    from banyandb_tpu_torch.models.measure import MeasureEngine
-    from banyandb_tpu_torch.obs.tracer import Tracer
 
-    pts = make_points(n_points, SEED + 1)
-    reg = engine_registry(root)
-    eng = MeasureEngine(reg, os.path.join(root, "data"), device=device)
     svc_vals = ["svc-%04d" % i for i in range(N_SVC)]
     region_vals = ["r%d" % i for i in range(N_REGION)]
-    bounds = np.linspace(0, n_points, 5).astype(np.int64)
     t0 = time.perf_counter()
-    for k in range(4):
-        lo, hi = int(bounds[k]), int(bounds[k + 1])
+    for lo in range(0, pts["ts"].shape[0], per_batch):
+        hi = lo + per_batch
         eng.write_columns(
             ENGINE_GROUP, "service_resp_time",
             ts_millis=pts["ts"][lo:hi],
@@ -1053,8 +1076,23 @@ def engine_path(hk, n_points: int, device: str, root: str) -> tuple:
             versions=np.ones(hi - lo, dtype=np.int64),
         )
         eng.flush()
+    return time.perf_counter() - t0
+
+
+def engine_path(hk, n_points: int, device: str, root: str) -> tuple:
+    """Write through MeasureEngine.write_columns, query from BydbQL on
+    `device`; -> (the launch counts of the path (the CPU engine's runs
+    come after they are read), {query name: the card's first result})."""
+    from banyandb_tpu_torch import bydbql
+    from banyandb_tpu_torch.models.measure import MeasureEngine
+    from banyandb_tpu_torch.obs.tracer import Tracer
+
+    pts = make_points(n_points, SEED + 1)
+    reg = engine_registry(root)
+    eng = MeasureEngine(reg, os.path.join(root, "data"), device=device)
+    write_s = write_batches(eng, pts, n_points // 4)
     log(f"  wrote {n_points} points in 4 batches of write_columns + flush in "
-        f"{time.perf_counter() - t0:.3f} s")
+        f"{write_s:.3f} s")
     texts = engine_queries(n_points)
     reqs = {name: bydbql.parse(ql) for name, ql in texts.items()}
     card = {}
@@ -1538,10 +1576,12 @@ def cluster_same(a, b, what: str, host: bool = False) -> None:
         check(ok, f"{what}: {key} differs")
 
 
-def cluster_oracle(pts: dict, name: str, res) -> None:
-    """One query's result against plain numpy over the points."""
-    keep = {"topn": pts["region"] == 3,
-            "fallback_ne": pts["region"] != 3}.get(name, slice(None))
+def cluster_oracle(pts: dict, name: str, res, keep=None, what: str = "cluster") -> None:
+    """One query's result against plain numpy over the points (`keep`,
+    a row mask, overrides the query's own predicate)."""
+    if keep is None:
+        keep = {"topn": pts["region"] == 3,
+                "fallback_ne": pts["region"] != 3}.get(name, slice(None))
     svc = pts["svc"][keep]
     count = np.bincount(svc, minlength=N_SVC).astype(np.float64)
     ids = [int(g[0][4:]) for g in res.groups]
@@ -1549,12 +1589,16 @@ def cluster_oracle(pts: dict, name: str, res) -> None:
         mean = np.bincount(svc, weights=pts["latency"][keep], minlength=N_SVC)
         mean = np.where(count > 0, mean / np.maximum(count, 1), -np.inf)
         check(ids == list(np.argsort(-mean, kind="stable")[:10]),
-              f"cluster {name}: TOP 10 differs from numpy")
-        check(np.allclose(res.values["mean(latency)"], mean[ids], rtol=RTOL, atol=0.0),
-              f"cluster {name}: means vs numpy")
+              f"{what} {name}: TOP 10 differs from numpy")
+        check(res.values["count"] == list(count[ids]), f"{what} {name}: counts vs numpy")
+        # a TOP 10 that selects no aggregate returns counts alone: its
+        # sums are held through the card's partials (oracle_check)
+        if "mean(latency)" in res.values:
+            check(np.allclose(res.values["mean(latency)"], mean[ids], rtol=RTOL, atol=0.0),
+                  f"{what} {name}: means vs numpy")
         return
-    check(sorted(ids) == list(np.nonzero(count)[0]), f"cluster {name}: group set")
-    check(res.values["count"] == list(count[ids]), f"cluster {name}: counts vs numpy")
+    check(sorted(ids) == list(np.nonzero(count)[0]), f"{what} {name}: group set")
+    check(res.values["count"] == list(count[ids]), f"{what} {name}: counts vs numpy")
     calls = pts["calls"][keep]
     if name == "percentile":
         lat = pts["latency"][keep]
@@ -1568,7 +1612,7 @@ def cluster_oracle(pts: dict, name: str, res) -> None:
             for q, e in zip((0.5, 0.99), row):
                 k = max(int(np.ceil(q * len(vals))), 1) - 1
                 check(abs(e - vals[k]) <= width + 1e-4,
-                      f"cluster percentile: p{q} of svc {gid} = {e}, order "
+                      f"{what} percentile: p{q} of svc {gid} = {e}, order "
                       f"statistic {vals[k]}")
         return
     if name == "count":
@@ -1579,7 +1623,7 @@ def cluster_oracle(pts: dict, name: str, res) -> None:
         want = np.full(N_SVC, np.inf if name == "min" else -np.inf)
         (np.minimum if name == "min" else np.maximum).at(want, svc, calls)
     check(res.values[f"{name}(calls)"] == list(want[ids]),
-          f"cluster {name}: {name}(calls) vs numpy")
+          f"{what} {name}: {name}(calls) vs numpy")
 
 
 def device_split(fn) -> tuple:
@@ -2880,6 +2924,314 @@ def rebalance_path(hk, cluster: dict, device: str) -> tuple:
     return launches, fig
 
 
+# -- phase 16: the data lifecycle ------------------------------------------------
+
+DAY_MS = 86_400_000
+LIFE_N = 1 << 20
+LIFE_DAYS = 4
+LIFE_T0 = T0 - T0 % DAY_MS  # 2023-11-14 00:00 UTC: a day segment's start
+TIER_N = 1 << 18
+
+
+def life_points(n: int, days: int, seed: int) -> dict:
+    """The measure configuration's points, n // days a day over `days`
+    day segments from LIFE_T0, evenly spaced within each day."""
+    pts = make_points(n, seed)
+    per = n // days
+    i = np.arange(n, dtype=np.int64)
+    pts["ts"] = LIFE_T0 + (i // per) * DAY_MS + (i % per) * (DAY_MS // per)
+    return pts
+
+
+def day_slice(pts: dict, lo_day: int, hi_day: int) -> dict:
+    keep = (pts["ts"] >= LIFE_T0 + lo_day * DAY_MS) & (pts["ts"] < LIFE_T0 + hi_day * DAY_MS)
+    return {k: v[keep] for k, v in pts.items()}
+
+
+def life_queries(days: int, names=None) -> dict:
+    """BydbQL over the first `days` days: phase 6's TOP 10 and p50/p99
+    (``region != 'r3'``) and count/sum/min/max of calls, each by svc."""
+    span = f"TIME BETWEEN {LIFE_T0} AND {LIFE_T0 + days * DAY_MS - 1}"
+    frm = f"FROM MEASURE service_resp_time IN {ENGINE_GROUP} {span}"
+    out = {
+        "topn": f"SELECT latency, calls {frm} WHERE region != 'r3' GROUP BY svc "
+                "TOP 10 BY latency",
+        "percentile": f"SELECT percentile(latency, 0.5, 0.99) {frm} "
+                      f"WHERE region != 'r3' GROUP BY svc LIMIT {N_SVC}",
+    }
+    for fn in ("count", "sum", "min", "max"):
+        out[fn] = f"SELECT {fn}(calls) {frm} GROUP BY svc LIMIT {N_SVC}"
+    return {k: v for k, v in out.items() if names is None or k in names}
+
+
+def clear_serving_caches() -> None:
+    """Empty the decoded-part, gather and partials caches (host and
+    device): the next query reads the moved bytes and runs its own scan.
+    The caches key a part by its path, and an archived segment comes
+    back at the same path."""
+    from banyandb_tpu_torch.storage.cache import device_cache, global_cache
+
+    global_cache().clear()
+    device_cache().clear()
+
+
+def tree_bytes(root) -> int:
+    from pathlib import Path
+
+    return sum(p.stat().st_size for p in Path(root).rglob("*") if p.is_file())
+
+
+def life_step(hk, ask, texts: dict, pts: dict, what: str, device: str,
+              before: dict = None, partials=None) -> tuple:
+    """Ask every query once through `ask`, each with cold serving caches
+    (so each one scans), each against numpy over `pts` (the TOP 10 and
+    the percentiles where region != 'r3') and, given `before`, exactly
+    equal to the answer before the move; given `partials` (an engine's
+    ``query_partials``), the TOP 10's partials, its float sums among
+    them, against numpy too; -> ({name: result}, wall ms, every kernel's
+    launches in the step's queries).  On the card ``fused_group_multi``
+    must have launched."""
+    from banyandb_tpu_torch import bydbql
+
+    hk.reset_launches()
+    out = {}
+    t0 = time.perf_counter()
+    for name, ql in texts.items():
+        clear_serving_caches()
+        out[name] = ask(bydbql.parse(ql))
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = dict(hk.LAUNCHES)
+    for name, res in out.items():
+        keep = pts["region"] != 3 if name in ("topn", "percentile") else None
+        cluster_oracle(pts, name, res, keep=keep, what=what)
+        if before is not None:
+            check(same_doc(result_doc(res), result_doc(before[name])),
+                  f"{what}: {name} differs from before the move")
+    if partials is not None:
+        oracle_check(pts, partials(bydbql.parse(texts["topn"])), out["topn"],
+                     f"{what} topn partials")
+    if device == "cuda":
+        check(launches["fused_group_multi"] > 0, f"{what}: fused_group_multi not launched")
+    log(f"  ok  {what}: {len(texts)} queries in {wall!r} ms equal numpy"
+        + (" and the answers before the move" if before is not None else "")
+        + f"; launches {launches}")
+    return out, wall, launches
+
+
+def busy_ms(ask, texts: dict, device: str):
+    """Device busy ms of phase 6's TOP 10 with cold caches (the card
+    only; None elsewhere)."""
+    if device != "cuda":
+        return None
+    from banyandb_tpu_torch import bydbql
+
+    req = bydbql.parse(texts["topn"])
+    clear_serving_caches()
+    busy, _h2d, wall, _top = device_split(lambda: ask(req))
+    return [busy, wall]
+
+
+def lifecycle_path(hk, n_points: int, device: str, root: str) -> tuple:
+    """Phase 16 on `device`: the measure configuration over four day
+    segments through the lifecycle tools.  -> (launches of the
+    lifecycle steps, launches of the tier step's queries, the figures).
+
+    1. archive: ``lifecycle.migrate`` the first two days away and
+       ``restore_segment`` them back;
+    2. format migration: ``analyze``, ``plan(target_version=2)``,
+       ``copy`` into a fresh root, ``verify``, a fresh engine over it;
+    3. backup and restore into an empty root, and a refused restore
+       into a live one;
+    4. tier migration: a hot and a warm ``DataNode`` and a liaison with
+       stages hot and warm; ``TierMigrator`` ships day 1 to the warm
+       node; stage-routed queries; a second run ships nothing;
+    5. MCP: ``execute_bydbql`` of the TOP 10 through ``McpServer``.
+
+    Each query runs with the serving caches emptied just before it, so
+    each one scans, and is held against numpy; each answer after a move
+    equals the answer before it exactly, value for value.  The launches
+    of every kernel are read after each step's queries."""
+    from pathlib import Path
+
+    from banyandb_tpu_torch.admin import backup, lifecycle, migration
+    from banyandb_tpu_torch.admin.tier_migration import TierMigrator
+    from banyandb_tpu_torch.api import SchemaRegistry
+    from banyandb_tpu_torch.cluster import DataNode, Liaison, NodeInfo
+    from banyandb_tpu_torch.cluster.rpc import LocalTransport
+    from banyandb_tpu_torch.mcp_server import McpServer
+    from banyandb_tpu_torch.models.measure import MeasureEngine
+
+    root = Path(root)
+    live = root / "live"
+    pts = life_points(n_points, LIFE_DAYS, SEED + 5)
+    texts = life_queries(LIFE_DAYS)
+    fig = {"points": n_points, "days": LIFE_DAYS, "steps": {}}
+    launches = {k: 0 for k in hk.LAUNCHES}
+    tier_counts = {k: 0 for k in hk.LAUNCHES}
+
+    def engine(r):
+        return MeasureEngine(SchemaRegistry(r), r / "data", device=device)
+
+    def step(name, t0, **kw):
+        fig["steps"][name] = dict(kw, wall_s=time.perf_counter() - t0)
+        log(f"  step {name}: {fig['steps'][name]}")
+
+    def count(step_launches, into=launches):
+        """Add one step's launches of every kernel; -> fused_group_multi's."""
+        for k, v in step_launches.items():
+            into[k] += v
+        return step_launches["fused_group_multi"]
+
+    # 1. archive and restore
+    t0 = time.perf_counter()
+    engine_registry(str(live), schema_dir="")
+    eng = engine(live)
+    write_s = write_batches(eng, pts, n_points // LIFE_DAYS)
+    parts = sum(len(sh.parts) for seg in eng._tsdb(ENGINE_GROUP).segments
+                for sh in seg.shards)
+    check(parts == 2 * LIFE_DAYS, f"lifecycle: {parts} parts written, not 8")
+    log(f"  wrote {n_points} points in {LIFE_DAYS} day batches of write_columns + "
+        f"flush in {write_s:.3f} s: {parts} parts")
+    first, first_ms, counts = life_step(hk, eng.query, texts, pts, "lifecycle before", device,
+                                        partials=eng.query_partials)
+    fused = count(counts)
+    db = eng._tsdb(ENGINE_GROUP)
+    t1 = time.perf_counter()
+    moved = lifecycle.migrate(db, root / "archive", LIFE_T0 + 2 * DAY_MS)
+    archive_ms = (time.perf_counter() - t1) * 1e3
+    check(len(moved) == 2 and lifecycle.list_archived(root / "archive") == moved,
+          f"lifecycle: migrate moved {moved}")
+    after, after_ms, counts = life_step(
+        hk, eng.query, texts, day_slice(pts, 2, 4), "lifecycle archived", device,
+        partials=eng.query_partials)
+    fused_a = count(counts)
+    busy_archived = busy_ms(eng.query, texts, device)
+    t1 = time.perf_counter()
+    for name in moved:
+        lifecycle.restore_segment(root / "archive", db, name)
+    restore_ms = (time.perf_counter() - t1) * 1e3
+    back, back_ms, counts = life_step(hk, eng.query, texts, pts, "lifecycle restored",
+                                      device, before=first, partials=eng.query_partials)
+    fused_r = count(counts)
+    step("archive", t0, archived=moved, archived_bytes=tree_bytes(root / "archive"),
+         migrate_ms=archive_ms, restore_ms=restore_ms,
+         query_ms=[first_ms, after_ms, back_ms],
+         fused_group_multi=[fused, fused_a, fused_r],
+         busy_ms=[busy_archived, busy_ms(eng.query, texts, device)])
+
+    # 2. offline format migration into a fresh root
+    t0 = time.perf_counter()
+    info = migration.analyze(live)
+    check(len(info["parts"]) == parts
+          and all(p.get("version") == 1 for p in info["parts"]),
+          f"migration: analyze {info['parts'][:2]}")
+    plan = migration.plan(live, target_version=2)
+    check(len(plan["rewrite"]) == parts, f"migration: plan rewrites {len(plan['rewrite'])}")
+    out = migration.copy(live, root / "copy", plan)
+    ver = migration.verify(live, root / "copy")
+    check(ver["ok"] and ver["checked"] == parts, f"migration: verify {ver}")
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    eng2 = engine(root / "copy")
+    _, copied_ms, counts = life_step(hk, eng2.query, texts, pts, "migration copy", device,
+                                     before=first, partials=eng2.query_partials)
+    fused = count(counts)
+    step("format", t0, rewritten=out["rewritten_parts"], copied_files=out["copied_files"],
+         copied_bytes=tree_bytes(root / "copy"), copy_verify_ms=copy_ms,
+         query_ms=copied_ms, fused_group_multi=fused,
+         busy_ms=busy_ms(eng2.query, texts, device))
+    eng2.close()
+
+    # 3. backup and restore
+    t0 = time.perf_counter()
+    remote = backup.LocalDirFS(root / "backups")
+    stamp = backup.backup(live, remote, flush=eng.flush)
+    check(backup.list_backups(remote) == [stamp], "backup: list_backups")
+    files = backup.restore(remote, stamp, root / "restored")
+    eng3 = engine(root / "restored")
+    _, restored_ms, counts = life_step(hk, eng3.query, texts, pts, "backup restored",
+                                       device, before=first, partials=eng3.query_partials)
+    fused = count(counts)
+    try:
+        backup.restore(remote, stamp, live)
+        check(False, "backup: restore into a live root was not refused")
+    except FileExistsError:
+        pass
+    step("backup", t0, time_dir=stamp, files=files,
+         backed_up_bytes=tree_bytes(root / "backups"), query_ms=restored_ms,
+         fused_group_multi=fused, busy_ms=busy_ms(eng3.query, texts, device))
+    eng3.close()
+    eng.close()
+
+    # 4. hot -> warm tier migration
+    t0 = time.perf_counter()
+    tpts = life_points(TIER_N, 2, SEED + 6)
+    transport, infos, nodes = LocalTransport(), [], {}
+    for name in ("hot", "warm", "liaison"):
+        reg = engine_registry(str(root / "tier" / name), stages=("hot", "warm"),
+                              schema_dir="")
+        if name != "liaison":
+            nodes[name] = DataNode(name, reg, root / "tier" / name / "data",
+                                   device=device)
+            infos.append(NodeInfo(name, transport.register(name, nodes[name].bus),
+                                  stages=(name,)))
+    liaison = Liaison(reg, transport, infos)
+    try:
+        hot = nodes["hot"]
+        write_batches(hot.measure, tpts, TIER_N)
+        sync = SyncBytes(transport)
+        t1 = time.perf_counter()
+        stats = TierMigrator(hot, sync, infos[1].addr).run(LIFE_T0 + DAY_MS)
+        ship_ms = (time.perf_counter() - t1) * 1e3
+        check(stats["shipped_parts"] == 2
+              and stats["migrated_segments"] == ["measure/sw/seg-20231114"],
+              f"tier: {stats}")
+        check(all(s.start != LIFE_T0 for s in hot.measure._tsdbs[ENGINE_GROUP].segments),
+              "tier: the hot node still holds day 1")
+        ttexts = life_queries(2, ("topn", "count", "sum"))
+        tier = {}
+        for stages, lo, hi in ((("warm",), 0, 1), (("hot",), 1, 2), ((), 0, 2)):
+            ask = lambda req, st=stages: liaison.query_measure(  # noqa: E731
+                dataclasses.replace(req, stages=st))
+            # a single stage's answer is one node's: hold its partials too
+            own = nodes[stages[0]].measure.query_partials if stages else None
+            _res, ms, counts = life_step(hk, ask, ttexts, day_slice(tpts, lo, hi),
+                                         f"tier stages={stages}", device, partials=own)
+            tier["/".join(stages) or "all"] = [ms, count(counts, into=tier_counts)]
+        busy = busy_ms(lambda req: liaison.query_measure(
+            dataclasses.replace(req, stages=("warm",))), ttexts, device)
+        again = TierMigrator(hot, transport, infos[1].addr).run(LIFE_T0 + DAY_MS)
+        check(again["shipped_parts"] == 0, f"tier: second run shipped {again}")
+        step("tier", t0, shipped_parts=stats["shipped_parts"], shipped_bytes=sync.bytes,
+             ship_ms=ship_ms, migrated=stats["migrated_segments"], queries=tier,
+             busy_ms=busy, second_run_shipped=again["shipped_parts"])
+    finally:
+        close_nodes(nodes.values())
+
+    # 5. MCP over step 1's root
+    t0 = time.perf_counter()
+    mcp = McpServer(live, device=device)
+    clear_serving_caches()
+    hk.reset_launches()
+    replies = [mcp.handle({"jsonrpc": "2.0", "id": i, "method": m, "params": p})
+               for i, (m, p) in enumerate([
+                   ("initialize", {}), ("tools/list", {}),
+                   ("tools/call", {"name": "execute_bydbql",
+                                   "arguments": {"query": texts["topn"]}})])]
+    fused = count(dict(hk.LAUNCHES))
+    check(all("result" in r for r in replies), f"mcp: {replies}")
+    got = json.loads(replies[2]["result"]["content"][0]["text"])["result"]
+    want = result_doc(first["topn"])
+    check(got["groups"] == want["groups"] and got["values"] == want["values"],
+          "mcp: execute_bydbql TOP 10 differs from step 1's")
+    if device == "cuda":
+        check(fused > 0, "mcp: fused_group_multi not launched")
+    mcp.measure.close()
+    mcp.stream.close()
+    step("mcp", t0, tools=len(replies[1]["result"]["tools"]), fused_group_multi=fused)
+
+    return launches, tier_counts, fig
+
+
 def find_spans(tree: dict, name: str) -> list:
     out = [tree] if tree.get("name") == name else []
     for c in tree.get("children", ()):
@@ -2994,7 +3346,13 @@ def main() -> int:
     finally:
         close_nodes(cluster["nodes"])
         cluster_dir.cleanup()
-    phase("[16] all phases done")
+    with tempfile.TemporaryDirectory(prefix="bydb-smoke-lifecycle-") as root:
+        phase(f"[16] lifecycle path: {LIFE_N} points over {LIFE_DAYS} day segments "
+              "archived, migrated, backed up, tiered and asked over MCP")
+        paths["lifecycle"], paths["tier"], lifecycle_fig = lifecycle_path(
+            hk, LIFE_N, "cuda", root)
+    print(json.dumps({"lifecycle": lifecycle_fig}), flush=True)
+    phase("[17] all phases done")
     for path, kernels in PATH_KERNELS.items():
         for k in kernels:
             check(paths[path][k] > 0, f"{k}: not launched on the {path} path")

@@ -752,3 +752,188 @@ def test_worker_server_on_card_loads_the_library_and_launches(dev, tmp_path, mon
             srv.stop()
     assert answers[1] == answers[0]
     assert all(a["groups"] for a in answers[0])
+
+
+# -- the data lifecycle ---------------------------------------------------------
+
+_DAY = 86_400_000
+_LT0 = 1_699_920_000_000  # 2023-11-14 00:00 UTC, a day segment's start
+
+
+def _life_rows(n, days, seed):
+    rng = np.random.default_rng(seed)
+    per = n // days
+    i = np.arange(n, dtype=np.int64)
+    return (_LT0 + (i // per) * _DAY + (i % per) * (_DAY // per),
+            rng.integers(0, 64, n), rng.integers(0, 1000, n))
+
+
+def _life_registry(root, stages=()):
+    from banyandb_tpu_torch.api import (
+        Catalog, Entity, FieldSpec, FieldType, Group, Measure, ResourceOpts,
+        SchemaRegistry, TagSpec, TagType,
+    )
+
+    reg = SchemaRegistry(root)
+    reg.create_group(Group("sw", Catalog.MEASURE,
+                           ResourceOpts(shard_num=2, stages=stages)))
+    reg.create_measure(Measure(
+        group="sw", name="cpm", tags=(TagSpec("svc", TagType.STRING),),
+        fields=(FieldSpec("value", FieldType.INT),), entity=Entity(("svc",))))
+    return reg
+
+
+def _life_write(eng, rows, days):
+    from banyandb_tpu_torch.models.measure import DictColumn
+
+    ts, svc, val = rows
+    per = ts.shape[0] // days
+    for lo in range(0, ts.shape[0], per):
+        eng.write_columns(
+            "sw", "cpm", ts_millis=ts[lo:lo + per],
+            tags={"svc": DictColumn([f"s{i}" for i in range(64)], svc[lo:lo + per])},
+            fields={"value": val[lo:lo + per].astype(np.float64)},
+            versions=np.ones(per, dtype=np.int64))
+        eng.flush()
+
+
+def _life_ql(days, fn):
+    return (f"SELECT {fn}(value) FROM MEASURE cpm IN sw TIME BETWEEN {_LT0} AND "
+            f"{_LT0 + days * _DAY - 1} GROUP BY svc LIMIT 64")
+
+
+def _life_answers(ask, days=4):
+    """count/sum/min/max of value by svc with cold serving caches; ->
+    (answers, fused_group_multi launches)."""
+    from banyandb_tpu_torch import bydbql
+    from banyandb_tpu_torch.storage.cache import device_cache, global_cache
+
+    global_cache().clear()
+    device_cache().clear()
+    before = hk.LAUNCHES["fused_group_multi"]
+    out = {}
+    for fn in ("count", "sum", "min", "max"):
+        r = ask(bydbql.parse(_life_ql(days, fn)))
+        out[fn] = sorted(zip(r.groups, *(r.values[k] for k in sorted(r.values))))
+    return out, hk.LAUNCHES["fused_group_multi"] - before
+
+
+def test_archive_and_restore_on_card_equal_cpu(dev, tmp_path):
+    """Four day segments archived two by two and restored: the card's
+    answers equal a device="cpu" engine's at each step, the restored
+    answers equal the first, and every step launches the group kernel."""
+    from banyandb_tpu_torch.admin import lifecycle
+    from banyandb_tpu_torch.models.measure import MeasureEngine
+
+    rows = _life_rows(1 << 16, 4, 31)
+    got = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        root = tmp_path / name
+        eng = MeasureEngine(_life_registry(root), root / "data", device=device)
+        _life_write(eng, rows, 4)
+        steps = [_life_answers(eng.query)]
+        db = eng._tsdb("sw")
+        moved = lifecycle.migrate(db, tmp_path / f"{name}-arch", _LT0 + 2 * _DAY)
+        assert len(moved) == 2
+        steps.append(_life_answers(eng.query))
+        for seg in moved:
+            lifecycle.restore_segment(tmp_path / f"{name}-arch", db, seg)
+        steps.append(_life_answers(eng.query))
+        eng.close()
+        got[name] = steps
+    assert [a for a, _n in got["card"]] == [a for a, _n in got["cpu"]]
+    assert got["card"][2][0] == got["card"][0][0] != got["card"][1][0]
+    assert all(n > 0 for _a, n in got["card"])
+
+
+def test_backup_restore_on_card(dev, tmp_path):
+    """A backup of a card engine's root restored into an empty root: a
+    fresh card engine answers as before the backup (and as a CPU engine
+    over the restored root), launching the group kernel."""
+    from banyandb_tpu_torch.admin import backup
+    from banyandb_tpu_torch.api import SchemaRegistry
+    from banyandb_tpu_torch.models.measure import MeasureEngine
+
+    eng = MeasureEngine(_life_registry(tmp_path / "src"), tmp_path / "src" / "data",
+                        device=dev)
+    _life_write(eng, _life_rows(1 << 16, 4, 32), 4)
+    want, _n = _life_answers(eng.query)
+    remote = backup.LocalDirFS(tmp_path / "remote")
+    stamp = backup.backup(tmp_path / "src", remote, flush=eng.flush)
+    assert backup.restore(remote, stamp, tmp_path / "dst") > 0
+    with pytest.raises(FileExistsError):
+        backup.restore(remote, stamp, tmp_path / "src")
+    eng.close()
+    for device in (dev, "cpu"):
+        e = MeasureEngine(SchemaRegistry(tmp_path / "dst"), tmp_path / "dst" / "data",
+                          device=device)
+        got, launched = _life_answers(e.query)
+        e.close()
+        assert got == want
+        assert (launched > 0) == (device != "cpu")
+
+
+def test_tier_migration_on_card(dev, tmp_path):
+    """Hot and warm data nodes on the card: day 1 ships to the warm node,
+    whose stage-routed answers equal numpy over day 1 and launch the group
+    kernel there; a second run ships nothing."""
+    import dataclasses
+
+    from banyandb_tpu_torch.admin.tier_migration import TierMigrator
+    from banyandb_tpu_torch.cluster import DataNode, Liaison, NodeInfo
+    from banyandb_tpu_torch.cluster.rpc import LocalTransport
+
+    ts, svc, val = rows = _life_rows(1 << 16, 2, 33)
+    transport, infos, nodes = LocalTransport(), [], []
+    for name in ("hot", "warm"):
+        dn = DataNode(name, _life_registry(tmp_path / name, ("hot", "warm")),
+                      tmp_path / name / "data", device=dev)
+        nodes.append(dn)
+        infos.append(NodeInfo(name, transport.register(name, dn.bus), stages=(name,)))
+    liaison = Liaison(_life_registry(tmp_path / "l", ("hot", "warm")), transport, infos)
+    try:
+        _life_write(nodes[0].measure, rows, 2)
+        stats = TierMigrator(nodes[0], transport, infos[1].addr).run(_LT0 + _DAY)
+        assert stats["shipped_parts"] == 2
+        assert stats["migrated_segments"] == ["measure/sw/seg-20231114"]
+        day1 = ts < _LT0 + _DAY
+        for stages, keep in ((("warm",), day1), (("hot",), ~day1), ((), day1 | ~day1)):
+            got, launched = _life_answers(lambda r, st=stages: liaison.query_measure(
+                dataclasses.replace(r, stages=st)), days=2)
+            assert launched > 0, stages
+            s, v = svc[keep], val[keep].astype(float)
+            want = sorted(((f"s{k}",), float(v[s == k].sum()), float((s == k).sum()))
+                          for k in np.unique(s))
+            assert [(g, sm, c) for g, c, sm in got["sum"]] == want, stages
+        again = TierMigrator(nodes[0], transport, infos[1].addr).run(_LT0 + _DAY)
+        assert again["shipped_parts"] == 0
+    finally:
+        for dn in nodes:
+            dn.measure.close(), dn.stream.close(), dn.trace.close()
+
+
+def test_mcp_server_on_card_launches(dev, tmp_path):
+    """McpServer builds its engines on the card by default; execute_bydbql
+    of an aggregate launches the group kernel and replies as a
+    device="cpu" server over the same root."""
+    import json
+
+    from banyandb_tpu_torch.mcp_server import McpServer
+    from banyandb_tpu_torch.storage.cache import device_cache, global_cache
+
+    _life_registry(tmp_path)
+    srv = McpServer(tmp_path)
+    assert srv.measure.device.type == "cuda"
+    _life_write(srv.measure, _life_rows(1 << 16, 4, 34), 4)
+    call = {"jsonrpc": "2.0", "id": 1, "method": "tools/call",
+            "params": {"name": "execute_bydbql", "arguments": {"query": _life_ql(4, "sum")}}}
+    replies = []
+    for s in (srv, McpServer(tmp_path, device="cpu")):
+        global_cache().clear()
+        device_cache().clear()
+        before = hk.LAUNCHES["fused_group_multi"]
+        replies.append(json.loads(s.handle(call)["result"]["content"][0]["text"]))
+        assert (hk.LAUNCHES["fused_group_multi"] > before) == (s is srv)
+        s.measure.close()
+        s.stream.close()
+    assert replies[0] == replies[1] and len(replies[0]["result"]["groups"]) == 64

@@ -382,6 +382,20 @@ _ISOLATION = textwrap.dedent(
     assert plan.new_epoch == 2 and plan.moves, plan
     assert leaks.leaked_processes(procreg.snapshot(), grace_s=0.0) == []
     assert workers.relabel_exposition("x 1", {"worker": "w0"}) == 'x{worker="w0"} 1'
+
+    # the data lifecycle: archive, format migration, backup, object
+    # stores, tier migration, the streaming flow and the MCP server
+    import banyandb_tpu_torch.admin.backup, banyandb_tpu_torch.admin.lifecycle
+    import banyandb_tpu_torch.admin.migration, banyandb_tpu_torch.admin.tier_migration
+    import banyandb_tpu_torch.utils.object_store
+    from banyandb_tpu_torch import flow, mcp_server
+    f = flow.Flow("f").window(flow.TumblingEventTimeWindow(10)).aggregate("count")
+    f.feed([flow.Element(1, 1.0), flow.Element(2, 1.0)])
+    assert f.advance_watermark(10)[0].value == 2.0
+    with tempfile.TemporaryDirectory() as root:
+        mcp = mcp_server.McpServer(root, device="cpu")
+        assert mcp.handle({"jsonrpc": "2.0", "id": 1, "method": "ping"})["result"] == {}
+        mcp.measure.close(), mcp.stream.close()
     bad = sorted(k for k in sys.modules
                  if k in ("jax", "grpc") or k.startswith(
                      ("jax.", "banyandb_tpu.", "grpc.", "google.protobuf")))
@@ -401,7 +415,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "isolated"
     offenders = []
-    for path in sorted((REPO / "banyandb_tpu_torch").rglob("*.py")):
+    for path in [*sorted((REPO / "banyandb_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]:
         for i, line in enumerate(path.read_text().splitlines(), 1):
             s = line.strip()
             if s.startswith(("import ", "from ")) and (
@@ -410,3 +424,43 @@ def test_port_imports_neither_jax_nor_reference():
             ):
                 offenders.append(f"{path.relative_to(REPO)}:{i}: {s}")
     assert not offenders, offenders
+
+
+def test_smoke_lifecycle_path_on_cpu(tmp_path, monkeypatch):
+    """Phase 16 of chip_smoke.py (archive and restore, format migration,
+    backup and restore, hot -> warm tier migration, MCP) at 65,536
+    points on a device="cpu" engine: every step's answers equal numpy and
+    the answers before the move (the smoke checks both itself), and the
+    launch counts it returns are every kernel's, read in each step."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    from banyandb_tpu_torch.ops import hopper_kernels as hk
+
+    # each query of a step empties the caches just before it runs: count
+    # one "launch" of every kernel there, so that the totals show which
+    # queries the returned counts were read over
+    clear = chip_smoke.clear_serving_caches
+
+    def clear_and_count():
+        clear()
+        for k in hk.LAUNCHES:
+            hk.LAUNCHES[k] += 1
+
+    monkeypatch.setattr(chip_smoke, "clear_serving_caches", clear_and_count)
+    lifecycle, tier, fig = chip_smoke.lifecycle_path(hk, 1 << 16, "cpu", str(tmp_path))
+    steps = fig["steps"]
+    assert list(steps) == ["archive", "format", "backup", "tier", "mcp"]
+    assert steps["archive"]["archived"] == ["seg-20231114", "seg-20231115"]
+    assert steps["format"]["rewritten"] == 8
+    assert steps["tier"]["shipped_parts"] == 2 and steps["tier"]["second_run_shipped"] == 0
+    assert steps["tier"]["migrated"] == ["measure/sw/seg-20231114"]
+    # CPU tensors take the kernels' plain versions and launch nothing: the
+    # counts are the queries' own, 6 in each of 5 lifecycle steps (the MCP
+    # step empties the caches before it resets the counts) and 3 in each of
+    # the 3 stage-routed tier steps
+    assert lifecycle == {k: 30 for k in hk.LAUNCHES}
+    assert tier == {k: 9 for k in hk.LAUNCHES}
+    assert steps["archive"]["fused_group_multi"] == [6, 6, 6]
