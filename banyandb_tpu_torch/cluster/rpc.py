@@ -1,21 +1,30 @@
-"""Message transports: in-process.
+"""Message transports: in-process and gRPC.
 
 ``LocalTransport`` carries JSON-serializable envelopes to a node's
 ``LocalBus`` in this process (the standalone wiring and the
-multi-node-in-one-process topology).  The gRPC transport and server of
-the JAX package (``GrpcTransport``, ``GrpcBusServer``: generic handlers
-on ``/banyandb.Bus/Call``) come with the serving slice; this module
-imports neither ``grpc`` nor protobuf.
+multi-node-in-one-process topology).  The gRPC transport uses generic
+(codegen-free) handlers on one method ``/banyandb.Bus/Call`` carrying
+the same JSON envelopes — the analog of the reference's bus-over-gRPC
+(banyand/queue/pub + sub) with topic dispatch on the server side.
+
+``grpc`` and the generated protos load inside ``GrpcBusServer`` and
+``GrpcTransport`` only: a process that rides ``LocalTransport`` (the
+in-process cluster on the card) never imports them.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
+from concurrent import futures
+from typing import Optional
 
 from banyandb_tpu_torch.cluster import faults
 from banyandb_tpu_torch.cluster.bus import LocalBus
 from banyandb_tpu_torch.obs import metrics as obs_metrics
+
+_METHOD = "/banyandb.Bus/Call"
 
 
 def _observe_rpc(side: str, topic: str, t0: float) -> None:
@@ -100,3 +109,314 @@ class LocalTransport:
             raise
         finally:
             _observe_rpc("client", topic, t0)
+
+
+def prespawn_pool(pool) -> None:
+    """Start every worker thread of a ThreadPoolExecutor NOW.
+
+    Executor workers normally spawn lazily on first submit, which (a)
+    adds thread-creation latency to the first RPCs a fresh server
+    receives and (b) makes the thread population nondeterministic — a
+    per-test thread-parity check needs a server's threads to exist when
+    the server starts, not when the first request lands."""
+    import threading as _t
+
+    n = pool._max_workers
+    barrier = _t.Barrier(n + 1)
+
+    def hold():
+        try:
+            barrier.wait(timeout=10)
+        except _t.BrokenBarrierError:  # pragma: no cover - degraded start
+            pass
+
+    for _ in range(n):
+        pool.submit(hold)
+    try:
+        barrier.wait(timeout=10)
+    except _t.BrokenBarrierError:  # pragma: no cover - degraded start
+        pass
+
+
+class GrpcBusServer:
+    """Serves a LocalBus over gRPC generic handlers (sub.NewServer analog).
+
+    TLS: pass cert_file+key_file for server TLS with HOT RELOAD
+    (pkg/tls/reloader.go analog) — rotated PEM files take effect on the
+    next handshake via utils/tls_reloader.CertReloader."""
+
+    def __init__(
+        self,
+        bus: LocalBus,
+        port: int = 0,
+        host: str = "127.0.0.1",
+        *,
+        cert_file: Optional[str] = None,
+        key_file: Optional[str] = None,
+        sync_install=None,
+        extra_handlers=(),
+    ):
+        """sync_install: the streaming ChunkedSyncService's install
+        callback (cluster/chunked_sync.py, not in this package yet: it
+        raises NotImplementedError).  extra_handlers: additional generic
+        RPC handlers to co-host (e.g. property repair/gossip)."""
+        if sync_install is not None:
+            raise NotImplementedError(
+                "the streaming chunked part sync (cluster/chunked_sync.py) "
+                "is not ported to banyandb_tpu_torch yet (ROADMAP.md Queue 1 "
+                "item 7)"
+            )
+        import grpc
+
+        self.bus = bus
+
+        def call_behavior(request: bytes, context) -> bytes:
+            msg = json.loads(request)
+            t0 = time.perf_counter()
+            try:
+                reply = self.bus.handle(msg["topic"], msg["envelope"])
+                return json.dumps({"ok": True, "reply": reply}).encode()
+            except Exception as e:  # noqa: BLE001 - errors cross the wire
+                return json.dumps(
+                    {
+                        "ok": False,
+                        "kind": _error_kind(e),
+                        "error": f"{type(e).__name__}: {e}",
+                    }
+                ).encode()
+            finally:
+                _observe_rpc("server", msg.get("topic", "?"), t0)
+
+        handler = grpc.method_handlers_generic_handler(
+            "banyandb.Bus",
+            {
+                "Call": grpc.unary_unary_rpc_method_handler(
+                    call_behavior,
+                    request_deserializer=lambda b: b,
+                    response_serializer=lambda b: b,
+                )
+            },
+        )
+
+        # The reference-shaped internal fabric (cluster/v1/rpc.proto:188,
+        # banyand/queue/sub): Send is a bidi stream of topic-addressed
+        # envelopes (bodies are this bus's JSON envelopes), HealthCheck
+        # answers per-service status.  Wire shape matches upstream; the
+        # body codec is this framework's envelope JSON rather than the
+        # per-topic protos of api/data.
+        from banyandb_tpu_torch.api import pb as _pb
+
+        cl = _pb.cluster_rpc_pb2
+        wr = _pb.model_write_pb2
+
+        def send_behavior(req_iter, context):
+            for req in req_iter:
+                try:
+                    reply = self.bus.handle(
+                        req.topic, json.loads(req.body or b"{}")
+                    )
+                    yield cl.SendResponse(
+                        message_id=req.message_id,
+                        body=json.dumps(reply).encode(),
+                        status=wr.STATUS_SUCCEED,
+                    )
+                except Exception as e:  # noqa: BLE001 - errors cross the wire
+                    shed = type(e).__name__ in _SHED_TYPES
+                    yield cl.SendResponse(
+                        message_id=req.message_id,
+                        error=f"{type(e).__name__}: {e}",
+                        status=(
+                            wr.STATUS_INTERNAL_ERROR
+                            if not shed
+                            else wr.STATUS_DISK_FULL
+                        ),
+                    )
+
+        def health_behavior(req, context):
+            known = req.service_name in self.bus.topics() or not req.service_name
+            return cl.HealthCheckResponse(
+                service_name=req.service_name,
+                status=wr.STATUS_SUCCEED if known else wr.STATUS_NOT_FOUND,
+                error="" if known else f"unknown topic {req.service_name}",
+            )
+
+        cluster_service = grpc.method_handlers_generic_handler(
+            "banyandb.cluster.v1.Service",
+            {
+                "Send": grpc.stream_stream_rpc_method_handler(
+                    send_behavior,
+                    request_deserializer=cl.SendRequest.FromString,
+                    response_serializer=lambda m: m.SerializeToString(),
+                ),
+                "HealthCheck": grpc.unary_unary_rpc_method_handler(
+                    health_behavior,
+                    request_deserializer=cl.HealthCheckRequest.FromString,
+                    response_serializer=lambda m: m.SerializeToString(),
+                ),
+            },
+        )
+        # the server does NOT own a pool it is merely handed: keep the
+        # reference so stop() can join the workers (grpc never shuts a
+        # caller-provided executor down — idle worker threads would
+        # otherwise outlive every stopped server, a leak a thread-parity
+        # check catches)
+        self._pool = futures.ThreadPoolExecutor(max_workers=8)
+        self._server = grpc.server(
+            self._pool,
+            options=[("grpc.max_receive_message_length", 64 * 1024 * 1024),
+                     ("grpc.max_send_message_length", 64 * 1024 * 1024)],
+        )
+        self._server.add_generic_rpc_handlers((handler, cluster_service))
+        if extra_handlers:
+            self._server.add_generic_rpc_handlers(tuple(extra_handlers))
+        self.tls_reloader = None
+        if cert_file and key_file:
+            # hot-reloading credentials (pkg/tls/reloader.go:55 analog):
+            # rotated PEMs take effect on the next handshake, no restart
+            from banyandb_tpu_torch.utils.tls_reloader import CertReloader
+
+            self.tls_reloader = CertReloader(cert_file, key_file)
+            self.port = self._server.add_secure_port(
+                f"{host}:{port}", self.tls_reloader.server_credentials()
+            )
+        else:
+            self.port = self._server.add_insecure_port(f"{host}:{port}")
+        self.addr = f"{host}:{self.port}"
+
+    def start(self) -> None:
+        prespawn_pool(self._pool)
+        self._server.start()
+
+    def stop(self, grace: float = 1.0) -> None:
+        self._server.stop(grace).wait()
+        self._pool.shutdown(wait=True)
+
+
+class GrpcTransport:
+    """Client side: per-address channels (banyand/queue/pub analog).
+
+    TLS: pass ca_file (PEM of the server cert / CA) to dial with
+    credentials; optionally override the expected server name for
+    self-signed certs."""
+
+    def __init__(
+        self,
+        *,
+        ca_file: Optional[str] = None,
+        server_name_override: Optional[str] = None,
+    ):
+        self._channels: dict[str, object] = {}
+        self._lock = threading.Lock()
+        self._ca_file = ca_file
+        self._server_name_override = server_name_override
+
+    def _stub(self, addr: str):
+        """-> (unary-unary stub, the channel it rides) for addr.  The
+        channel is returned so a failing call can evict exactly the
+        channel it used (see _evict)."""
+        import grpc
+
+        with self._lock:
+            ch = self._channels.get(addr)
+            if ch is None:
+                options = [
+                    ("grpc.max_receive_message_length", 64 * 1024 * 1024),
+                    ("grpc.max_send_message_length", 64 * 1024 * 1024),
+                ]
+                if self._ca_file:
+                    from pathlib import Path as _P
+
+                    creds = grpc.ssl_channel_credentials(
+                        _P(self._ca_file).read_bytes()
+                    )
+                    if self._server_name_override:
+                        options.append(
+                            (
+                                "grpc.ssl_target_name_override",
+                                self._server_name_override,
+                            )
+                        )
+                    ch = grpc.secure_channel(addr, creds, options=options)
+                else:
+                    ch = grpc.insecure_channel(addr, options=options)
+                self._channels[addr] = ch
+            return (
+                ch.unary_unary(
+                    _METHOD,
+                    request_serializer=lambda b: b,
+                    response_deserializer=lambda b: b,
+                ),
+                ch,
+            )
+
+    def channel(self, addr: str):
+        """Raw grpc channel for streaming services (chunked sync)."""
+        return self._stub(addr)[1]
+
+    def evict(self, addr: str) -> None:
+        """Public eviction for STREAMING users: a failed SyncPart stream
+        never passes through call(), so its wedged channel would survive
+        the UNAVAILABLE-eviction below and poison every retry against a
+        restarted peer (same gVisor-class wedge, see _evict).  Dropping
+        the cache entry makes the next dial fresh; the old channel is
+        released when its last user lets go."""
+        with self._lock:
+            self._channels.pop(addr, None)
+
+    def _evict(self, addr: str, failed) -> None:
+        """Drop the channel a call just failed on so the next call dials
+        a fresh one.  A channel whose connect wedged can stay in
+        TRANSIENT_FAILURE long after the peer is reachable — observed on
+        gVisor-class kernels, where a dial racing the server's bind
+        establishes at the TCP layer but the client event engine misses
+        the writability event, burning the full connect timeout per
+        retry — while a fresh dial to the same address connects
+        instantly.  Evicting on UNAVAILABLE bounds the damage to one
+        failed call.  Identity-checked (a concurrent re-dial's healthy
+        replacement is never dropped) and NOT closed: a streaming user
+        (chunked sync holds channels via .channel()) may still ride it,
+        and close() would cancel its in-flight RPCs — the dropped
+        channel is released when its last user lets go."""
+        with self._lock:
+            if self._channels.get(addr) is failed:
+                del self._channels[addr]
+
+    def call(self, addr: str, topic: str, envelope: dict, timeout: float = 30.0) -> dict:
+        import grpc
+
+        faults.maybe_fail_rpc(addr, topic)
+        stub, ch = self._stub(addr)
+        payload = json.dumps({"topic": topic, "envelope": envelope}).encode()
+        t0 = time.perf_counter()
+        try:
+            raw = stub(payload, timeout=timeout)
+        except grpc.RpcError as e:
+            if e.code() == grpc.StatusCode.UNAVAILABLE:
+                self._evict(addr, ch)
+            # a client-enforced deadline says the CALL was too slow, not
+            # that the peer is dead — callers clamping timeouts to a
+            # query budget (liaison _QueryGuard) must not evict healthy
+            # nodes over their own budget running out
+            kind = (
+                "deadline"
+                if e.code() == grpc.StatusCode.DEADLINE_EXCEEDED
+                else "error"
+            )
+            raise TransportError(
+                f"rpc to {addr} failed: {e.code()}", kind=kind
+            ) from e
+        finally:
+            _observe_rpc("client", topic, t0)
+        msg = json.loads(raw)
+        if not msg.get("ok"):
+            raise TransportError(
+                msg.get("error", "remote error"),
+                kind=msg.get("kind", "error"),
+            )
+        return msg["reply"]
+
+    def close(self) -> None:
+        with self._lock:
+            for ch in self._channels.values():
+                ch.close()
+            self._channels.clear()

@@ -77,13 +77,26 @@ def _rule_criteria(rule: TopNAggregation):
     condition literals canonicalized into the string key domain."""
     if not rule.criteria:
         return None
-    # the criteria arrive as proto JSON; parsing them needs the wire
-    # layer (api/pb + api/wire), which this package does not carry yet
-    raise NotImplementedError(
-        f"TopN rule {rule.group}/{rule.name}: rule criteria need the wire "
-        "API, which banyandb_tpu_torch does not carry yet; define the rule "
-        "without criteria"
-    )
+    # protobuf and the wire codec load here, not at import: the TopN
+    # path of rules without criteria never needs them
+    from google.protobuf import json_format
+
+    from banyandb_tpu_torch.api import pb, wire
+    from banyandb_tpu_torch.api.model import Condition as _C
+    from banyandb_tpu_torch.api.model import LogicalExpression as _LE
+
+    crit = pb.model_query_pb2.Criteria()
+    json_format.ParseDict(rule.criteria, crit)
+
+    def canon(node):
+        if node is None:
+            return None
+        if isinstance(node, _C):
+            return _C(node.name, node.op, _canon_cond_value(node.value))
+        assert isinstance(node, _LE)
+        return _LE(node.op, canon(node.left), canon(node.right))
+
+    return canon(wire.criteria_to_internal(crit))
 
 
 def _crit_tag_names(crit) -> set:

@@ -1,10 +1,13 @@
 """Standalone server: all roles in one process (pkg/cmdsetup/standalone.go
-analog), driven over its in-process bus.
+analog), served over its in-process bus and, when asked, over gRPC.
 
     srv = StandaloneServer(root)              # the CUDA device; or device="cpu"
     srv.start()
     srv.bus.handle("bydbql", {"ql": "SELECT ..."})
     srv.stop()
+
+Run: python -m banyandb_tpu_torch.server --root /var/lib/banyandb --port 17912
+(``--device cpu`` to run without CUDA)
 
 User-facing topics (the MeasureService/StreamService/TraceService/
 PropertyService + registry + BydbQLService analog): measure/stream/trace
@@ -12,13 +15,17 @@ writes and queries, property apply/get/query, registry CRUD, BydbQL,
 health, snapshot, and the serving planes (metrics, slowlog, diagnostics,
 qos, topn, streamagg, pprof capture).
 
+``port`` serves the same bus over gRPC (``cluster/rpc.GrpcBusServer``,
+driven by ``cli.py``); ``wire_port`` the reference-proto
+``banyandb.*.v1`` services (``api/grpc_server.py``); ``http_port`` the
+HTTP/JSON gateway and its console (``api/http_gateway.py``); one
+``auth_file`` governs both of the latter.  ``grpc`` and protobuf load
+only when one of those tiers is asked for.
+
 ``workers=N`` (or ``BYDB_WORKERS=N``) serves the data plane from N
 shard-owning worker subprocesses on the server's device
 (``cluster/workers.py``), with result JSON byte-identical to the
-single-process layout.  The JAX package serves the same bus over gRPC
-and adds the wire, HTTP and command-line tiers; here each of those
-raises ``NotImplementedError`` naming the ROADMAP.md item that brings
-it.
+single-process layout.
 """
 
 from __future__ import annotations
@@ -59,14 +66,6 @@ TOPIC_QOS = "qos"
 
 # conservative per-point admission estimate for the memory protector
 _POINT_BYTES = 256
-
-
-def _waits(tier: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{tier} is not ported to banyandb_tpu_torch yet "
-        f"(ROADMAP.md Queue 1 {item}); drive the server in-process "
-        "through StandaloneServer.bus.handle"
-    )
 
 
 def _rss() -> int:
@@ -164,21 +163,15 @@ class StandaloneServer:
         registry warms there — the CUDA device by default; without CUDA
         the constructor raises unless ``"cpu"`` was asked for.
 
-        ``port=None`` serves in-process only (``self.bus``); the gRPC
-        bus (`port`) and the wire and HTTP tiers (`wire_port`,
-        `http_port`, `auth_file`) raise ``NotImplementedError`` until
-        their slices land.  `workers` (else ``BYDB_WORKERS``, default 0)
+        ``port=None`` serves in-process only (``self.bus``; ``addr`` is
+        None); a port (0 = any free one) serves the bus over gRPC too.
+        ``wire_port``/``http_port`` None disable the reference-proto
+        and HTTP tiers.  `workers` (else ``BYDB_WORKERS``, default 0)
         > 0 spawns that many shard workers on `device`."""
         from banyandb_tpu_torch.obs import SlowQueryRecorder
         from banyandb_tpu_torch.obs.metrics import global_meter
         from banyandb_tpu_torch.utils.envflag import env_float, env_int
 
-        if port is not None:
-            raise _waits("the gRPC bus server", "item 4")
-        if wire_port is not None or auth_file is not None:
-            raise _waits("the banyandb.*.v1 wire surface", "items 4 and 6")
-        if http_port is not None:
-            raise _waits("the HTTP gateway", "items 4 and 6")
         self.device = resolve_device(device)
         self.root = Path(root)
         self.registry = SchemaRegistry(self.root)
@@ -300,6 +293,76 @@ class StandaloneServer:
         self.schema_store = PropertySchemaStore(self.registry, self.property)
         self.bus = LocalBus()
         self._register()
+        # port=None: in-process only; grpc is imported by the bus server
+        # itself, so the card's in-process path never loads it
+        self.grpc = None
+        if port is not None:
+            from banyandb_tpu_torch.cluster.rpc import GrpcBusServer
+
+            self.grpc = GrpcBusServer(self.bus, port=port)
+        # reference-proto surfaces (banyandb.*.v1 gRPC + HTTP gateway);
+        # None disables a tier
+        self.wire = None
+        self.http = None
+        # wire/http surfaces speak to the data plane through whatever
+        # shape is live: engines in-process, or the liaison adapters
+        # over the worker pool (the cluster_server trio — the pool's
+        # embedded Liaison has the same surface as the cluster one)
+        if self.pool is not None:
+            # every model rides its pool adapter, not a bare liaison
+            # one: wire writes must journal-then-forward (the crash
+            # contract covers EVERY ack, not just bus writes) and wire
+            # TopN needs the pool's scatter plane (topn_scatter)
+            _wire_measure = self._pool_measure
+            _wire_stream = self._pool_stream
+            _wire_trace = self._pool_trace
+        else:
+            _wire_measure, _wire_stream, _wire_trace = (
+                self.measure, self.stream, self.trace,
+            )
+        if wire_port is not None:
+            from banyandb_tpu_torch.api.grpc_server import WireServer, WireServices
+
+            self._wire_services = WireServices(
+                self.registry,
+                _wire_measure,
+                _wire_stream,
+                property_engine=self.property,
+                trace_engine=_wire_trace,
+                node_info={
+                    "name": "standalone",
+                    "grpc_address": f"127.0.0.1:{wire_port}",
+                    "roles": ("data", "liaison"),
+                },
+                schema_store=self.schema_store,
+            )
+            self.wire = WireServer(
+                self._wire_services, port=wire_port, auth_file=auth_file
+            )
+        if http_port is not None:
+            from banyandb_tpu_torch.api.grpc_server import WireServices
+            from banyandb_tpu_torch.api.http_gateway import HttpGateway
+
+            svcs = getattr(self, "_wire_services", None) or WireServices(
+                self.registry,
+                _wire_measure,
+                _wire_stream,
+                property_engine=self.property,
+                trace_engine=_wire_trace,
+            )
+            # one users file governs both surfaces: an auth_file that only
+            # locked gRPC while HTTP served the same CRUD would be a trap
+            http_auth = None
+            if auth_file:
+                if self.wire is not None and self.wire.auth is not None:
+                    http_auth = self.wire.auth
+                else:
+                    from banyandb_tpu_torch.api.auth import AuthReloader
+
+                    http_auth = AuthReloader(auth_file)
+            self.http = HttpGateway(
+                svcs, port=http_port, auth=http_auth, slowlog=self.slowlog
+            )
         self.pprof = None
         if pprof_port is not None:
             from banyandb_tpu_torch.admin.profiling import ProfilingServer
@@ -987,11 +1050,17 @@ class StandaloneServer:
                 + list(self.trace._tsdbs.values())
             ),
         )
+        if self.grpc is not None:
+            self.grpc.start()
         self.watchdog.start()
         # periodic _monitoring population (the native-meter provider
         # cadence); thread owned here, joined in stop()
         self.self_metrics.start()
         self.self_trace.start()
+        if self.wire is not None:
+            self.wire.start()
+        if self.http is not None:
+            self.http.start()
         if self.pprof is not None:
             self.pprof.start()
 
@@ -1019,6 +1088,15 @@ class StandaloneServer:
         self.self_metrics.stop()
         self.self_trace.stop()
         self.watchdog.stop()
+        if self.grpc is not None:
+            self.grpc.stop()
+        # ALL ingress surfaces close before the pool: a write landing
+        # after pool.stop() would ack into a journal that dies with the
+        # process (acked-write loss on graceful shutdown)
+        if self.wire is not None:
+            self.wire.stop()
+        if self.http is not None:
+            self.http.stop()
         if self.pprof is not None:
             self.pprof.stop()
         if self.pool is not None:
@@ -1033,21 +1111,178 @@ class StandaloneServer:
         self.property.close()
 
     @property
-    def addr(self) -> str:
-        raise _waits("the gRPC bus server", "item 4")
+    def addr(self) -> str | None:
+        """host:port of the gRPC bus; None when served in-process only
+        (``port=None``)."""
+        return None if self.grpc is None else self.grpc.addr
 
 
 def build_config():
-    """Flag registry of the server command (CLI > BYDB_* env > --config
-    file > default): comes with the bus transport it configures."""
-    raise _waits("the server command line (config.py)", "items 4 and 6")
+    """Flag registry (pkg/config analog: CLI > BYDB_* env > --config
+    JSON file > default)."""
+    from banyandb_tpu_torch.config import Config
+
+    cfg = Config("banyandb-tpu server")
+    cfg.register("root", None, "data root directory", str, required=True)
+    cfg.register("port", 17912, "bus gRPC port", int)
+    cfg.register(
+        "wire-port", 17914,
+        "reference-proto gRPC surface (banyandb.*.v1); -1 disables", int,
+    )
+    cfg.register("http-port", 17913, "HTTP/JSON gateway; -1 disables", int)
+    cfg.register("pprof-port", -1, "profiling endpoints; -1 disables", int)
+    cfg.register(
+        "compile-cache-dir", "",
+        "build cache of the CUDA kernel library; empty = "
+        "<root>/compile-cache, 'off' disables", str,
+    )
+    cfg.register(
+        "slow-query-ms", 500.0,
+        "slow-query threshold: queries at/over it get the access-log "
+        "slow mark AND a flight-recorder entry (cli.py slowlog)", float,
+    )
+    cfg.register(
+        "serving-cache-cap", 0,
+        "serving-cache ENTRY capacity on top of the byte budget "
+        "(BYDB_SERVING_CACHE_CAP env; 0 = bytes-only)", int,
+    )
+    cfg.register(
+        "workers", -1,
+        "shard-owning worker processes for the data plane "
+        "(BYDB_WORKERS env): N>0 partitions shards over N subprocesses, "
+        "0 = single-process layout, -1 = auto (on by default on hosts "
+        "with >= 4 cores)", int,
+    )
+    # role topology (pkg/cmdsetup/root.go:89-91 standalone/data/liaison)
+    cfg.register("role", "standalone", "standalone | data | liaison", str)
+    cfg.register("name", "", "node name (data role)", str)
+    cfg.register(
+        "discovery", "", "node-list JSON file (liaison role)", str
+    )
+    cfg.register("replicas", 0, "replica count (liaison role)", int)
+    # not a flag of the JAX package's command: the torch device the
+    # engines scan on and the plan registry warms on
+    cfg.register(
+        "device", "cuda",
+        "torch device of the engines: cuda by default, "
+        "so the command runs on the card; without CUDA it refuses unless "
+        "cpu is asked for", str,
+    )
+    return cfg
 
 
 def main(argv=None) -> None:
-    """``python -m banyandb_tpu_torch.server``: without a transport the
-    process would serve nobody, so this raises until the gRPC bus,
-    ``run.py`` and the supervisor are ported."""
-    raise _waits("the server command (main, run.py, supervisor)", "items 4 and 6")
+    """``python -m banyandb_tpu_torch.server``: the standalone role.  The
+    data and liaison roles need the cluster's gRPC half
+    (``cluster_server.py``), which this package does not carry yet: they
+    exit naming ROADMAP.md Queue 1 item 7."""
+    import os as _os
+    import sys as _sys
+
+    from banyandb_tpu_torch.run import FuncUnit, Group
+
+    s = build_config().load(argv)
+    if s.role in ("data", "liaison"):
+        raise SystemExit(
+            f"--role {s.role} needs cluster_server.py, which is not ported "
+            "to banyandb_tpu_torch yet (ROADMAP.md Queue 1 item 7); serve "
+            "--role standalone"
+        )
+    if s.role != "standalone":
+        raise SystemExit(f"unknown role {s.role!r}")
+    # no silent host fallback: without CUDA the command refuses unless
+    # --device cpu was asked for
+    try:
+        device = resolve_device(s.device)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"error: {e} (--device cpu runs on the host)")
+    # the kernel library's build cache, wired before any kernel builds:
+    # the library builds once per machine, not once per process.  The
+    # flag has already folded CLI > BYDB_COMPILE_CACHE_DIR env > config
+    # file precedence via config.py.
+    from pathlib import Path as _Path
+
+    from banyandb_tpu_torch.utils import compile_cache
+
+    if s.compile_cache_dir:
+        compile_cache.enable_at(s.compile_cache_dir)
+    else:
+        compile_cache.enable_at(_Path(s.root) / "compile-cache")
+    # an armed fault plane must be impossible to miss in a server log
+    # (docs/robustness.md): chaos harnesses set it on purpose, a stray
+    # env var in production must not inject faults silently
+    from banyandb_tpu_torch.utils.envflag import env_str
+
+    _faults_spec = env_str("BYDB_FAULTS").strip()
+    if _faults_spec:
+        print(
+            f"warning: fault injection ARMED via BYDB_FAULTS="
+            f"{_faults_spec!r}",
+            file=_sys.stderr,
+            flush=True,
+        )
+    # role-irrelevant flags must not silently do nothing (an operator
+    # passing --replicas to a standalone server would expect replicas)
+    _ignored = [
+        ("discovery", bool(s.discovery)),
+        ("replicas", s.replicas != 0),
+        ("name", bool(s.name)),
+    ]
+    for flag, was_set in _ignored:
+        if was_set:
+            print(
+                f"warning: --{flag} has no effect with --role {s.role}",
+                file=_sys.stderr,
+                flush=True,
+            )
+    # on-by-default A/B flag (docs/performance.md "Multi-process
+    # data plane"): auto resolves to a worker fleet on hosts with
+    # enough cores to win from one; tiny hosts keep the
+    # single-process layout (a 2-core box convoys either way)
+    workers = s.workers
+    if workers < 0:
+        cpu = _os.cpu_count() or 1
+        workers = min(4, cpu // 2) if cpu >= 4 else 0
+    srv = StandaloneServer(
+        s.root,
+        s.port,
+        wire_port=None if s.wire_port < 0 else s.wire_port,
+        http_port=None if s.http_port < 0 else s.http_port,
+        pprof_port=None if s.pprof_port < 0 else s.pprof_port,
+        slow_query_ms=s.slow_query_ms,
+        serving_cache_cap=s.serving_cache_cap or None,
+        workers=workers,
+        device=device,
+    )
+
+    def announce():
+        srv.start()
+        print(f"banyandb-tpu standalone listening on {srv.addr}", flush=True)
+        print(f"device: {srv.device}", flush=True)
+        if srv.pool is not None:
+            print(
+                f"multi-process data plane: {srv.pool.n} shard workers",
+                flush=True,
+            )
+        if srv.wire is not None:
+            print(f"wire gRPC (banyandb.*.v1) on :{srv.wire.port}", flush=True)
+        if srv.http is not None:
+            print(f"HTTP gateway + console on :{srv.http.port}", flush=True)
+        if srv.pprof is not None:
+            print(f"profiling endpoints on :{srv.pprof.port}", flush=True)
+
+    group = Group(s.role)
+    group.add(FuncUnit("server", serve=announce, stop=srv.stop))
+    # panic supervisor: uncaught exceptions on any thread write a crash
+    # artifact and trigger orderly teardown (supervisor.go analog)
+    from banyandb_tpu_torch.admin.supervisor import Supervisor
+
+    Supervisor(srv.root, on_crash=group.trigger_stop).install()
+    group.run()
+    # grpc's worker threads are non-daemon; an in-flight slow handler
+    # (e.g. the kernel library's first build) must not wedge process
+    # exit after SIGTERM.
+    _os._exit(0)
 
 
 if __name__ == "__main__":

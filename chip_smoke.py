@@ -192,6 +192,7 @@ PATH_KERNELS = {
     "rebalance": ("fused_group_multi",),
     "lifecycle": ("fused_group_multi",),
     "tier": ("fused_group_multi",),
+    "wire": ("fused_group_multi",),
 }
 
 
@@ -3259,6 +3260,345 @@ class SyncBytes:
         return getattr(self.inner, name)
 
 
+# -- phase 17: the network surface -----------------------------------------------
+
+WIRE_N = 1 << 20  # tests/test_torch_cuda.py and the slow CPU test
+# the smoke's own depth: the wire ingests a few thousand points a second
+# (one WriteRequest per point, the reference's stream), so 1,048,576
+# points would take minutes of the smoke's time limit
+WIRE_SMOKE_N = 1 << 16
+WIRE_ENVELOPE = 1 << 16  # WriteRequests per MeasureService/Write stream
+
+
+def wire_queries(n: int) -> dict:
+    """BydbQL of the phase: the TOP 10 services by mean latency and the
+    p50/p99 latency of each service, both over region != 'r3'.  The mean
+    of a FLOAT field reduces on the host in f64 (``measure_exec``'s
+    host_f64 path, as in the JAX package): only the percentiles launch
+    the group kernel."""
+    span = f"TIME BETWEEN {T0} AND {T0 + n - 1}"
+    frm = f"FROM MEASURE service_resp_time IN {ENGINE_GROUP} {span}"
+    where = "WHERE region != 'r3' GROUP BY svc"
+    return {
+        "topn": f"SELECT mean(latency) {frm} {where} TOP 10 BY latency",
+        "percentile": f"SELECT percentile(latency, 0.5, 0.99) {frm} {where} LIMIT {N_SVC}",
+    }
+
+
+def wire_stub(chan, service: str, method: str, req_cls, resp_cls, stream=False):
+    kind = chan.stream_stream if stream else chan.unary_unary
+    return kind(f"/{service}/{method}", request_serializer=req_cls.SerializeToString,
+                response_deserializer=resp_cls.FromString)
+
+
+def wire_schema(chan) -> None:
+    """Group ``sw`` (2 shards, day segments) and the measure, through the
+    reference-proto registry services."""
+    from banyandb_tpu_torch.api import pb
+
+    rpc = pb.database_rpc_pb2
+    g = rpc.GroupRegistryServiceCreateRequest()
+    g.group.metadata.name = ENGINE_GROUP
+    g.group.catalog = 2  # CATALOG_MEASURE
+    opts = g.group.resource_opts
+    opts.shard_num = 2
+    opts.segment_interval.unit, opts.segment_interval.num = 2, 1  # 1 day
+    # the points are stamped from T0 (2023-11-14) and the server's
+    # retention sweep (every 60 s, against the wall clock) would drop
+    # them mid-ingest under the default 7-day TTL: keep ten years
+    opts.ttl.unit, opts.ttl.num = 2, 3650
+    wire_stub(chan, "banyandb.database.v1.GroupRegistryService", "Create",
+              rpc.GroupRegistryServiceCreateRequest,
+              rpc.GroupRegistryServiceCreateResponse)(g)
+    m = rpc.MeasureRegistryServiceCreateRequest()
+    m.measure.metadata.group, m.measure.metadata.name = ENGINE_GROUP, "service_resp_time"
+    fam = m.measure.tag_families.add(name="default")
+    fam.tags.add(name="svc", type=1)  # TAG_TYPE_STRING
+    fam.tags.add(name="region", type=1)
+    m.measure.fields.add(name="latency", field_type=4)  # FIELD_TYPE_FLOAT
+    m.measure.fields.add(name="calls", field_type=2)  # FIELD_TYPE_INT
+    m.measure.entity.tag_names.extend(["svc", "region"])
+    wire_stub(chan, "banyandb.database.v1.MeasureRegistryService", "Create",
+              rpc.MeasureRegistryServiceCreateRequest,
+              rpc.MeasureRegistryServiceCreateResponse)(m)
+
+
+def wire_envelope(pts: dict, lo: int, hi: int) -> list:
+    """Points lo..hi as MeasureService/Write requests, one data point
+    each (the reference's write stream)."""
+    from banyandb_tpu_torch.api import pb
+
+    out = []
+    for i in range(lo, hi):
+        w = pb.measure_write_pb2.WriteRequest()
+        w.metadata.group, w.metadata.name = ENGINE_GROUP, "service_resp_time"
+        w.message_id = i + 1
+        dp = w.data_point
+        ts = int(pts["ts"][i])
+        dp.timestamp.seconds, dp.timestamp.nanos = ts // 1000, (ts % 1000) * 1_000_000
+        fam = dp.tag_families.add()
+        fam.tags.add().str.value = f"svc-{pts['svc'][i]}"
+        fam.tags.add().str.value = f"r{pts['region'][i]}"
+        dp.fields.add().float.value = float(pts["latency"][i])
+        dp.fields.add().int.value = int(pts["calls"][i])
+        dp.version = 1
+        out.append(w)
+    return out
+
+
+def wire_write(chan, pts: dict, n: int) -> float:
+    """The points through `chan`'s MeasureService/Write, one stream per
+    WIRE_ENVELOPE points, every reply checked.  -> seconds in the
+    streams."""
+    from banyandb_tpu_torch.api import pb
+
+    write = wire_stub(chan, "banyandb.measure.v1.MeasureService", "Write",
+                      pb.measure_write_pb2.WriteRequest,
+                      pb.measure_write_pb2.WriteResponse, stream=True)
+    spent = 0.0
+    for lo in range(0, n, WIRE_ENVELOPE):
+        reqs = wire_envelope(pts, lo, min(lo + WIRE_ENVELOPE, n))
+        t0 = time.perf_counter()
+        resps = list(write(iter(reqs)))
+        spent += time.perf_counter() - t0
+        bad = [r.status for r in resps if r.status != "STATUS_SUCCEED"]
+        check(len(resps) == len(reqs) and not bad,
+              f"wire write [{lo}, {lo + len(reqs)}): {len(resps)} replies, {bad[:3]}")
+    return spent
+
+
+def wire_topn_request(n: int):
+    """The TOP 10 as the reference's MeasureService/Query request (the
+    shape SkyWalking's OAP sends): mean(latency) by svc, region != r3."""
+    from banyandb_tpu_torch.api import pb
+
+    q = pb.measure_query_pb2.QueryRequest(groups=[ENGINE_GROUP], name="service_resp_time")
+    q.time_range.begin.seconds, q.time_range.begin.nanos = T0 // 1000, (T0 % 1000) * 1_000_000
+    end = T0 + n
+    q.time_range.end.seconds, q.time_range.end.nanos = end // 1000, (end % 1000) * 1_000_000
+    q.group_by.tag_projection.tag_families.add(name="default").tags.append("svc")
+    q.tag_projection.tag_families.add(name="default").tags.append("svc")
+    q.field_projection.names.append("latency")
+    q.agg.function, q.agg.field_name = 1, "latency"  # AGGREGATION_FUNCTION_MEAN
+    q.top.number, q.top.field_name, q.top.field_value_sort = 10, "latency", 1  # DESC
+    c = q.criteria.condition
+    c.name, c.op = "region", 2  # BINARY_OP_NE
+    c.value.str.value = "r3"
+    return q
+
+
+def wire_rows(resp) -> list:
+    """A measure QueryResponse (or a BydbQL one's measure_result) ->
+    [(svc, {field name: value})] in reply order."""
+    out = []
+    for dp in resp.data_points:
+        svc = dp.tag_families[0].tags[0].value.str.value
+        vals = {}
+        for f in dp.fields:
+            kind = f.value.WhichOneof("value")
+            v = getattr(f.value, kind)
+            vals[f.name] = list(v.value) if kind.endswith("_array") else v.value
+        out.append((svc, vals))
+    return out
+
+
+def wire_writer(addr: str, n: str, seed: str) -> int:
+    """A writer process of phase 17: the measure configuration's points
+    (`seed`) through `addr`'s MeasureService/Write, one stream per
+    WIRE_ENVELOPE points; prints {"stream_s": seconds in the streams}.
+    A process of its own, so that the server's handler and the client
+    do not share one interpreter."""
+    import grpc
+
+    chan = grpc.insecure_channel(addr)
+    try:
+        spent = wire_write(chan, make_points(int(n), int(seed)), int(n))
+    finally:
+        chan.close()
+    print(json.dumps({"stream_s": spent}), flush=True)
+    return 0
+
+
+def spawn_writer(addr: str, n: int, seed: int):
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--wire-writer", addr, str(n), str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+
+
+def reap_writer(proc, what: str) -> float:
+    out, _ = proc.communicate(timeout=3600)
+    if proc.returncode != 0:
+        log(out[-4000:])
+    check(proc.returncode == 0, f"{what}: writer exited {proc.returncode}")
+    return json.loads(out.strip().splitlines()[-1])["stream_s"]
+
+
+def wire_path(hk, n: int, device: str, root: str, peer=None) -> tuple:
+    """Phase 17: StandaloneServer on `device` with its gRPC bus, the
+    banyandb.*.v1 wire services and the HTTP gateway on free ports.  A
+    writer process sends the measure configuration's n points through
+    MeasureService/Write streams of WIRE_ENVELOPE; then the TOP 10 and
+    p50/p99 queries are asked over BydbQLService/Query, the TOP 10 also
+    over MeasureService/Query, each over the HTTP gateway's
+    /bydbql/query and over the bus's ``bydbql`` topic, each with cold
+    serving caches (so each scans).  Every surface must give the same
+    groups and values, and the bus's answer must agree with numpy.
+    `peer` ({"wire": host:port, "bus": host:port} of another server,
+    e.g. the JAX package's) gets the same schema, writes (its own
+    writer process, at the same time) and questions over its wire, and
+    its replies are returned for the caller to compare.  -> (launches of
+    the asks, figures, {(query, surface): reply}, {query: peer's wire
+    reply})."""
+    import urllib.request
+
+    import grpc
+    from google.protobuf import json_format
+
+    from banyandb_tpu_torch.api import pb
+    from banyandb_tpu_torch.cluster.rpc import GrpcTransport
+    from banyandb_tpu_torch.server import StandaloneServer
+
+    seed = SEED + 5
+    fig: dict = {"points": n, "envelope_points": WIRE_ENVELOPE}
+    t0 = time.perf_counter()
+    srv = StandaloneServer(root, port=0, wire_port=0, http_port=0, device=device)
+    srv.start()
+    fig["start_s"] = time.perf_counter() - t0
+    addr = f"127.0.0.1:{srv.wire.port}"
+    chans = [grpc.insecure_channel(addr)]
+    if peer is not None:
+        chans.append(grpc.insecure_channel(peer["wire"]))
+    transport = GrpcTransport()
+    answers, peer_answers = {}, {}
+    try:
+        for c in chans:
+            wire_schema(c)
+        t1 = time.perf_counter()
+        writers = [spawn_writer(a, n, seed) for a in [addr] + ([peer["wire"]] if peer else [])]
+        spent = [reap_writer(w, "wire") for w in writers]
+        fig["ingest_wall_s"] = time.perf_counter() - t1
+        fig["ingest_s"] = spent[0]
+        fig["ingest_points_per_s"] = n / spent[0]
+        t1 = time.perf_counter()
+        transport.call(srv.addr, "snapshot", {})
+        fig["snapshot_s"] = time.perf_counter() - t1
+        if peer is not None:
+            transport.call(peer["bus"], "snapshot", {})
+        log(f"  wrote {n} points in {len(range(0, n, WIRE_ENVELOPE))} MeasureService/Write "
+            f"streams: {spent[0]!r} s ({fig['ingest_points_per_s']!r} points/s), "
+            f"snapshot {fig['snapshot_s']!r} s")
+        pts = make_points(n, seed)
+        ql_stub = [wire_stub(c, "banyandb.bydbql.v1.BydbQLService", "Query",
+                             pb.bydbql_query_pb2.QueryRequest,
+                             pb.bydbql_query_pb2.QueryResponse) for c in chans]
+        q_stub = [wire_stub(c, "banyandb.measure.v1.MeasureService", "Query",
+                            pb.measure_query_pb2.QueryRequest,
+                            pb.measure_query_pb2.QueryResponse) for c in chans]
+        http = f"http://127.0.0.1:{srv.http.port}/api/v1/bydbql/query"
+
+        def post(ql):
+            req = urllib.request.Request(http, data=json.dumps({"query": ql}).encode(),
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return json.loads(r.read())
+
+        asks = {}
+        for name, ql in wire_queries(n).items():
+            asks[(name, "wire_ql")] = lambda ql=ql: ql_stub[0](
+                pb.bydbql_query_pb2.QueryRequest(query=ql), timeout=600)
+            if name == "topn":
+                asks[(name, "wire_query")] = lambda: q_stub[0](wire_topn_request(n), timeout=600)
+            asks[(name, "http")] = lambda ql=ql: post(ql)
+            asks[(name, "bus")] = lambda ql=ql: transport.call(
+                srv.addr, "bydbql", {"ql": ql}, timeout=600)
+            if peer is not None:
+                peer_answers[name] = ql_stub[1](pb.bydbql_query_pb2.QueryRequest(query=ql),
+                                                timeout=600)
+                if name == "topn":
+                    peer_answers["topn_query"] = q_stub[1](wire_topn_request(n), timeout=600)
+        hk.reset_launches()
+        fig["asks"] = {}
+        for key, ask in asks.items():
+            clear_serving_caches()  # each ask scans
+            before = dict(hk.LAUNCHES)
+            t1 = time.perf_counter()
+            answers[key] = ask()
+            wall = time.perf_counter() - t1
+            row = {"wall_s": wall, "fused_group_multi":
+                   hk.LAUNCHES["fused_group_multi"] - before["fused_group_multi"]}
+            fig["asks"]["/".join(key)] = row
+            log(f"  {'/'.join(key)}: {wall!r} s, fused_group_multi launches "
+                f"{row['fused_group_multi']}")
+        launches = dict(hk.LAUNCHES)
+    finally:
+        transport.close()
+        for c in chans:
+            c.close()
+        srv.stop()
+
+    # every surface: the same groups and values, the bus's against numpy
+    for name in wire_queries(n):
+        bus = answers[(name, "bus")]["result"]
+        res = dataclasses.make_dataclass("R", ["groups", "values"])(
+            [tuple(g) for g in bus["groups"]], bus["values"])
+        cluster_oracle(pts, "fallback_ne" if name == "topn" else name, res,
+                       keep=pts["region"] != 3, what=f"wire {name}")
+        rows = wire_rows(answers[(name, "wire_ql")].measure_result)
+        check([s for s, _ in rows] == [g[0] for g in res.groups],
+              f"wire {name}: BydbQL groups differ from the bus's")
+        # a percentile row's quantiles are fields latency, latency[1]
+        if name == "topn":
+            got, want = [v["latency"] for _, v in rows], res.values["mean(latency)"]
+        else:
+            got = [[v["latency"], v["latency[1]"]] for _, v in rows]
+            want = res.values["percentile(latency)"]
+        check(got == list(want), f"wire {name}: BydbQL values differ from the bus's")
+        http_doc = answers[(name, "http")]
+        check(http_doc == json_format.MessageToDict(
+            answers[(name, "wire_ql")], preserving_proto_field_name=True),
+            f"wire {name}: the HTTP gateway's JSON differs from the wire reply")
+        if name == "topn":
+            got = wire_rows(answers[(name, "wire_query")])
+            check(got == rows, f"wire topn: MeasureService/Query differs from BydbQL: "
+                               f"{got[:2]} vs {rows[:2]}")
+    log("  ok  wire: BydbQL, MeasureService/Query, HTTP and the bus agree, and with numpy")
+    return launches, fig, answers, peer_answers
+
+
+def wire_child(root: str, out_path: str, n: str, device: str) -> int:
+    """The process of phase 17 (run by wire_phase): wire_path on `device`,
+    its launches and figures written to `out_path` as JSON.  A process
+    of its own, so that the smoke's own process never loads grpc or
+    protobuf (main checks that after phase 16)."""
+    from banyandb_tpu_torch.ops import hopper_kernels as hk
+
+    if device == "cuda":
+        hk.build()  # loads the library the parent built
+    launches, fig, _, _ = wire_path(hk, int(n), device, root)
+    with open(out_path, "w") as f:
+        json.dump({"launches": launches, "fig": fig}, f)
+    return 0
+
+
+def wire_phase(root: str, n: int, device: str = "cuda") -> tuple:
+    """Phase 17 in a child process.  -> (its launches, its figures)."""
+    out_path = os.path.join(root, "wire.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--wire-child",
+         os.path.join(root, "srv"), out_path, str(n), device],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=900,
+    )
+    for line in proc.stdout.splitlines():
+        log(line)
+    check(proc.returncode == 0, f"wire child exited {proc.returncode}")
+    with open(out_path) as f:
+        doc = json.load(f)
+    doc["fig"]["process_s"] = time.perf_counter() - t0
+    return doc["launches"], doc["fig"]
+
+
 def main() -> int:
     try:
         import torch
@@ -3269,6 +3609,10 @@ def main() -> int:
         return warm_child(*sys.argv[2:])
     if sys.argv[1:2] == ["--audit-child"]:  # the process of phase 12
         return audit_child(*sys.argv[2:])
+    if sys.argv[1:2] == ["--wire-writer"]:  # a client process of phase 17
+        return wire_writer(*sys.argv[2:])
+    if sys.argv[1:2] == ["--wire-child"]:  # the process of phase 17
+        return wire_child(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3352,7 +3696,17 @@ def main() -> int:
         paths["lifecycle"], paths["tier"], lifecycle_fig = lifecycle_path(
             hk, LIFE_N, "cuda", root)
     print(json.dumps({"lifecycle": lifecycle_fig}), flush=True)
-    phase("[17] all phases done")
+    # the card's paths are in-process: the server's gRPC, wire and HTTP
+    # tiers load grpc and protobuf lazily, and none of them ran here
+    wire = sorted(k for k in sys.modules
+                  if k == "grpc" or k.startswith(("grpc.", "google.protobuf")))
+    check(not wire, f"the in-process paths loaded {wire[:5]}")
+    with tempfile.TemporaryDirectory(prefix="bydb-smoke-wire-") as root:
+        phase(f"[17] wire path: {WIRE_SMOKE_N} points through MeasureService/Write, "
+              "asked over gRPC, HTTP and the bus in a child process")
+        paths["wire"], wire_fig = wire_phase(root, WIRE_SMOKE_N)
+    print(json.dumps({"wire": wire_fig}), flush=True)
+    phase("[18] all phases done")
     for path, kernels in PATH_KERNELS.items():
         for k in kernels:
             check(paths[path][k] > 0, f"{k}: not launched on the {path} path")

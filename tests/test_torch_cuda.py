@@ -937,3 +937,83 @@ def test_mcp_server_on_card_launches(dev, tmp_path):
         s.measure.close()
         s.stream.close()
     assert replies[0] == replies[1] and len(replies[0]["result"]["groups"]) == 64
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke
+
+
+def test_wire_surface_full_width_on_card(dev, tmp_path):
+    """The network surface at full width on the card (chip_smoke.wire_path
+    at WIRE_N = 1,048,576 points of the measure configuration): points
+    in through MeasureService/Write streams of 65,536 from a writer
+    process, the TOP 10 by mean latency and p50/p99 by svc over region
+    != 'r3' asked over BydbQLService/Query, MeasureService/Query (TOP
+    10), the HTTP gateway and the bus, each with cold caches; every
+    surface agrees with the others and with numpy (wire_path checks).
+    Every percentile ask launched the group kernel (``hk.LAUNCHES``);
+    the TOP 10's mean of a FLOAT field reduces on the host in f64 (the
+    JAX package's host_f64 route) and launches nothing."""
+    import json
+
+    pytest.importorskip("grpc")
+    cs = _chip_smoke()
+    hk.build()
+    launches, fig, _, _ = cs.wire_path(hk, cs.WIRE_N, "cuda", str(tmp_path))
+    print(json.dumps({"wire": fig}))
+    assert launches["fused_group_multi"] == sum(
+        a["fused_group_multi"] for a in fig["asks"].values())
+    for key, ask in fig["asks"].items():
+        assert (ask["fused_group_multi"] > 0) == key.startswith("percentile/"), fig["asks"]
+
+
+def test_server_command_on_card(dev, tmp_path):
+    """``python -m banyandb_tpu_torch.server`` with no ``--device`` runs
+    its engines on the card: it boots, reports ``device: cuda:0`` and
+    answers the port's CLI over the gRPC bus; SIGTERM ends it with 0."""
+    import io
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    from contextlib import redirect_stdout
+    from pathlib import Path
+
+    pytest.importorskip("grpc")
+    from banyandb_tpu_torch import cli
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "banyandb_tpu_torch.server", "--root", str(tmp_path),
+         "--port", "0", "--wire-port", "-1", "--http-port", "-1", "--workers", "0"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    try:
+        lines = []
+        for line in proc.stdout:  # the banner, then "device: ..."
+            lines.append(line.strip())
+            if line.startswith("device: "):
+                break
+        head = [ln for ln in lines if ln.startswith("banyandb-tpu standalone listening on ")]
+        assert head and lines[-1] == "device: cuda:0", lines
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            assert cli.main(["--addr", head[0].rsplit(" ", 1)[1], "health"]) == 0
+        assert json.loads(buf.getvalue())["status"] == "ok"
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()

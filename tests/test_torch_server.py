@@ -17,7 +17,8 @@ stripped; sums and means of the non-integer ``lat`` field follow
 process state (qos counters, slowlog timings, metrics, diagnostics)
 are held to the same shape: the same keys, entry counts and metric
 names.  A restart over the same root answers with the same bytes, and
-the device policy and the tiers that wait are pinned at the end.
+the device policy, the network tiers starting and the command line
+are pinned at the end.
 """
 
 import base64
@@ -427,25 +428,62 @@ def test_server_needs_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"port": 17912}, {"wire_port": 17914}, {"http_port": 17913},
-    {"auth_file": "users.yaml"}, {"workers": 2, "wire_port": 17914},
+    {"port": 0}, {"wire_port": 0}, {"http_port": 0},
+    {"auth_file": "users.yaml", "wire_port": 0, "http_port": 0},
+    {"workers": 1, "wire_port": 0},
 ], ids=["port", "wire_port", "http_port", "auth_file", "workers"])
 def test_tiers_that_wait_raise(tmp_path, kw):
-    """Each tier that waits raises; with workers asked too, the refusal
-    comes before any worker process is spawned."""
+    """The tiers that once waited now start: the gRPC bus answers its
+    address, the wire and HTTP tiers bind, one users file guards both,
+    and with workers the wire tier rides the pool adapters (a wire write
+    is journalled before it is forwarded; wire TopN scatters).  Stopping
+    the server reaps every worker it spawned."""
+    pytest.importorskip("grpc")
     from banyandb_tpu_torch.server import StandaloneServer
     from banyandb_tpu_torch.utils import procreg
 
+    if "auth_file" in kw:
+        from banyandb_tpu_torch.api.auth import write_users_file
+
+        write_users_file(tmp_path / "users.yaml", {"admin": "pw"})
+        kw = {**kw, "auth_file": str(tmp_path / "users.yaml")}
     before = procreg.snapshot()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        StandaloneServer(tmp_path, device="cpu", **kw)
+    srv = StandaloneServer(tmp_path / "srv", device="cpu", **kw)
+    srv.start()
+    try:
+        assert (srv.addr is not None) == ("port" in kw)
+        if "port" in kw:
+            from banyandb_tpu_torch.cluster.rpc import GrpcTransport
+
+            t = GrpcTransport()
+            try:
+                assert t.call(srv.addr, "health", {})["status"] == "ok"
+            finally:
+                t.close()
+        assert (srv.wire is not None) == ("wire_port" in kw)
+        assert (srv.http is not None) == ("http_port" in kw)
+        if srv.wire is not None:
+            assert srv.wire.port > 0
+            assert (srv.wire.auth is not None) == ("auth_file" in kw)
+            if srv.pool is not None:
+                assert srv._wire_services.measure is srv._pool_measure
+                assert srv._wire_services.trace is srv._pool_trace
+            else:
+                assert srv._wire_services.measure is srv.measure
+        if srv.http is not None and "auth_file" in kw:
+            assert srv.http.auth is srv.wire.auth
+    finally:
+        srv.stop()
     assert procreg.snapshot() == before
 
 
 def test_workers_env_and_command_line_raise(tmp_path, monkeypatch):
     """``BYDB_WORKERS`` sizes the worker pool (the multi-process data
-    plane, tests/test_torch_workers.py); the gRPC address and the
-    command line still raise."""
+    plane, tests/test_torch_workers.py); ``addr`` is None for a server
+    that serves in-process only; ``build_config()`` reads the command's
+    flags (with ``--device``, cuda by default); ``main()`` refuses the
+    data and liaison roles, naming the ROADMAP.md item that brings
+    them."""
     from banyandb_tpu_torch import server
 
     monkeypatch.setenv("BYDB_WORKERS", "1")
@@ -459,10 +497,13 @@ def test_workers_env_and_command_line_raise(tmp_path, monkeypatch):
     srv = server.StandaloneServer(tmp_path / "w0", device="cpu")
     try:
         assert srv.pool is None
-        with pytest.raises(NotImplementedError, match="item 4"):
-            srv.addr
+        assert srv.addr is None and srv.grpc is None
     finally:
         srv.stop()
-    for fn in (server.main, server.build_config):
-        with pytest.raises(NotImplementedError):
-            fn()
+    s = server.build_config().load(["--root", str(tmp_path), "--wire-port", "-1"])
+    assert (s.port, s.wire_port, s.http_port, s.device, s.role) == (
+        17912, -1, 17913, "cuda", "standalone")
+    for role in ("data", "liaison"):
+        with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 7"):
+            server.main(["--root", str(tmp_path / role), "--role", role, "--device", "cpu"])
+        assert not (tmp_path / role).exists()

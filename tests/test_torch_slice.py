@@ -396,6 +396,14 @@ _ISOLATION = textwrap.dedent(
         mcp = mcp_server.McpServer(root, device="cpu")
         assert mcp.handle({"jsonrpc": "2.0", "id": 1, "method": "ping"})["result"] == {}
         mcp.measure.close(), mcp.stream.close()
+
+    # the network surface's host modules: importing them (and building a
+    # client transport, the server command's flags) loads no grpc either
+    import banyandb_tpu_torch.admin.supervisor, banyandb_tpu_torch.run
+    from banyandb_tpu_torch import cli, server
+    from banyandb_tpu_torch.cluster.rpc import GrpcTransport
+    GrpcTransport().close()
+    assert server.build_config().load(["--root", "r"]).device == "cuda"
     bad = sorted(k for k in sys.modules
                  if k in ("jax", "grpc") or k.startswith(
                      ("jax.", "banyandb_tpu.", "grpc.", "google.protobuf")))
@@ -403,6 +411,43 @@ _ISOLATION = textwrap.dedent(
     print("isolated")
     """
 )
+
+# the wire tier: its generated protos are the port's own copies, imported
+# by their full path, with no top-level ``banyandb`` package and no
+# ``sys.path`` entry (google.protobuf's well-known types aside)
+_WIRE_ISOLATION = textwrap.dedent(
+    """
+    import os, sys
+    path0 = list(sys.path)
+    import banyandb_tpu_torch.api.wire, banyandb_tpu_torch.api.grpc_server
+    import banyandb_tpu_torch.api.http_gateway, banyandb_tpu_torch.api.auth
+    import importlib, pkgutil
+    from banyandb_tpu_torch.api import pb
+    import banyandb_tpu_torch.api.pb.banyandb as tree
+    for info in pkgutil.walk_packages(tree.__path__, tree.__name__ + "."):
+        importlib.import_module(info.name)
+    assert pb.measure_query_pb2.__name__.startswith("banyandb_tpu_torch.api.pb.")
+    assert sys.path == path0, (path0, sys.path)
+    here = os.path.dirname(banyandb_tpu_torch.__file__) + os.sep
+    pb2 = {k: getattr(m, "__file__", "") for k, m in list(sys.modules.items())
+           if k.endswith("_pb2") and not k.startswith("google.protobuf.")}
+    assert len(pb2) == 31, sorted(pb2)
+    stray = {k: f for k, f in pb2.items() if not f.startswith(here)}
+    assert not stray, stray
+    top = sorted(k for k in sys.modules if k == "banyandb" or k.startswith("banyandb."))
+    assert not top, top
+    bad = sorted(k for k in sys.modules if k == "jax" or k.startswith(("jax.", "banyandb_tpu.")))
+    assert not bad, bad
+    print("isolated")
+    """
+)
+
+# the only port modules that may import grpc or google.protobuf (each
+# keeps grpc lazy where the card's in-process path imports it)
+_WIRE_MODULES = {
+    "api/wire.py", "api/auth.py", "api/grpc_server.py", "api/http_gateway.py",
+    "cluster/rpc.py", "models/topn.py", "utils/tls_reloader.py",
+}
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -415,15 +460,38 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "isolated"
     offenders = []
-    for path in [*sorted((REPO / "banyandb_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]:
+    pkg = REPO / "banyandb_tpu_torch"
+    for path in [*sorted(pkg.rglob("*.py")), REPO / "chip_smoke.py"]:
+        rel = path.relative_to(pkg).as_posix() if path.is_relative_to(pkg) else ""
+        # the smoke's wire phase imports grpc in its own child process; the
+        # smoke checks that its main process never loads it
+        wire_ok = (rel in _WIRE_MODULES or rel.startswith("api/pb/")
+                   or path.name == "chip_smoke.py")
         for i, line in enumerate(path.read_text().splitlines(), 1):
             s = line.strip()
-            if s.startswith(("import ", "from ")) and (
-                s.split()[1].split(".")[0] in ("jax", "jaxlib", "banyandb_tpu", "grpc")
-                or s.split()[1].startswith("google.protobuf")
+            if not s.startswith(("import ", "from ")):
+                continue
+            mod = s.split()[1]
+            if mod.split(".")[0] in ("jax", "jaxlib", "banyandb_tpu") or (
+                not wire_ok and (mod.split(".")[0] == "grpc" or mod.startswith("google.protobuf"))
             ):
                 offenders.append(f"{path.relative_to(REPO)}:{i}: {s}")
     assert not offenders, offenders
+
+
+def test_wire_modules_load_only_the_ports_protos():
+    """In a fresh process, the wire, gRPC, HTTP and auth modules and all
+    31 generated modules load from ``banyandb_tpu_torch/api/pb`` by
+    their full path: no ``*_pb2`` from elsewhere, no top-level
+    ``banyandb`` package, ``sys.path`` untouched, no JAX."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _WIRE_ISOLATION], env=env, cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "isolated"
 
 
 def test_smoke_lifecycle_path_on_cpu(tmp_path, monkeypatch):
