@@ -79,7 +79,7 @@ from banyandb_tpu_torch.cluster.liaison import Liaison
 from banyandb_tpu_torch.cluster.node import NodeInfo
 from banyandb_tpu_torch.cluster.rpc import TransportError, _error_kind
 from banyandb_tpu_torch.utils import hashing, procreg
-from banyandb_tpu_torch.utils.envflag import env_int
+from banyandb_tpu_torch.utils.envflag import env_int, env_str
 
 log = logging.getLogger("banyandb.workers")
 
@@ -149,7 +149,7 @@ def fleet_cache_dir(pool_root: Path) -> str:
     """The build-cache directory the fleet shares: the parent's
     ``BYDB_COMPILE_CACHE_DIR`` when set (an off-value disables it),
     else ``<pool root>/compile-cache``."""
-    return os.environ.get("BYDB_COMPILE_CACHE_DIR") or str(
+    return env_str("BYDB_COMPILE_CACHE_DIR") or str(
         Path(pool_root) / "compile-cache"
     )
 

@@ -1,14 +1,29 @@
-"""bdlint for banyandb_tpu_torch: the analysis families the port has.
+"""bdlint — project-native static analysis for banyandb_tpu_torch.
 
-- ``plan-audit``  (``lint/whole_program/plan_audit.py``) fake-tensor
-  shape/dtype trace of every builtin plan signature, cache-key and
-  row-bucket audits;
-- ``kernel-*``    (``lint/kernel``) the ATen-op walk, dispatch and
-  transfer counts per plan signature, the launch/bytes/collective
-  facts, and the ratcheted per-signature budget table.
+Machine-checks the invariants that keep the CUDA hot path hot and the
+cluster fabric live (the port's copy of banyandb_tpu/lint; the per-file
+rule ids are the reference's):
 
-The per-file rule families and the ``python -m`` CLI of
-``banyandb_tpu/lint`` are not ported yet.
+- ``host-sync``        device->host copies and stream waits in hot modules
+- ``recompile-hazard`` per-call rebuilds of a device entry point or of the
+                       kernel library, per-chunk constants and formatting
+- ``precision-drift``  float64 reaching the card
+- ``rpc-timeout``      fabric calls that can block forever
+- ``lock-across-rpc``  locks held across blocking network calls
+- ``retry-backoff``    retry loops that hammer without sleeping
+- ``resource-hygiene`` files/sockets opened outside context managers
+
+plus the whole-program families (``lint/whole_program``: layering, sync,
+lock order, shared state, wire, plan audit, kernel audit).
+
+Usage::
+
+    python -m banyandb_tpu_torch.lint --check banyandb_tpu_torch
+    python -m banyandb_tpu_torch.lint --format json path/to/file.py
+
+Per-line suppression (same line or the comment line directly above)::
+
+    out = device_get(tree)  # bdlint: disable=host-sync -- boundary transfer
 """
 
 from banyandb_tpu_torch.lint.core import (  # noqa: F401

@@ -1,11 +1,9 @@
 """bdlint engine, the port's copy: findings, suppressions, the ratchet
 mechanics and the renderers (banyandb_tpu/lint/core.py).
 
-The port carries the analysis families it has: the whole-program plan
-audit (``lint/whole_program/plan_audit.py``) and the kernel audit
-(``lint/kernel``).  The per-file rule families of the reference
-(``rules_jax``, ``rules_fabric``) are not ported yet, so ``all_rules()``
-is empty; a rule, when one lands, is an object with
+Rules live in rules_torch.py (hot-path invariants, the PyTorch
+counterpart of the reference's rules_jax.py) and rules_fabric.py
+(cluster-fabric + resource invariants).  Each rule is an object with
 
 - ``name``     the greppable id used in ``# bdlint: disable=<name>``
 - ``summary``  one line for ``--list-rules``
@@ -14,7 +12,9 @@ is empty; a rule, when one lands, is an object with
 - ``check(ctx) -> Iterable[Finding]``
 
 Scopes are matched against the file's path relative to the
-``banyandb_tpu_torch`` package root.
+``banyandb_tpu_torch`` package root, so the hot-path rules fire only in
+the modules where a stray host sync actually costs money (query/, ops/,
+parallel/, index/) while fabric rules cover the whole tree.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ class FileContext:
         self.tree = ast.parse(source)
         self.lines = source.splitlines()
         self._parents: Optional[dict] = None
+        self._facts = None
 
     @property
     def parents(self) -> dict:
@@ -67,6 +68,16 @@ class FileContext:
                     p[child] = node
             self._parents = p
         return self._parents
+
+    @property
+    def torch_facts(self):
+        """Module-level device-region analysis shared by the hot-path
+        rules."""
+        if self._facts is None:
+            from banyandb_tpu_torch.lint.rules_torch import ModuleTorchFacts
+
+            self._facts = ModuleTorchFacts(self.tree)
+        return self._facts
 
     def finding(self, node: ast.AST, rule: str, message: str) -> Finding:
         return Finding(
@@ -238,9 +249,9 @@ def _package_rel(path: Path) -> Optional[str]:
 
 
 def all_rules() -> list:
-    """The per-file rules of the port: none yet (the reference's
-    ``rules_jax``/``rules_fabric`` families are still to be ported)."""
-    return []
+    from banyandb_tpu_torch.lint import rules_fabric, rules_torch
+
+    return list(rules_torch.RULES) + list(rules_fabric.RULES)
 
 
 ALL_RULES = all_rules
@@ -251,10 +262,12 @@ def lint_source(
     rel: str = "",
     path: str = "<memory>",
     rules: Optional[list] = None,
+    tally: Optional[dict] = None,
 ) -> tuple[list[Finding], int]:
     """Lint one source string as if it lived at package-relative `rel`.
 
     -> (findings, suppressed_count).  The test suite's entry point.
+    ``tally`` (optional) counts the suppressed findings per rule.
     """
     ctx = FileContext(source, path=path, rel=rel)
     per_line, file_wide = parse_suppressions(ctx.lines)
@@ -267,6 +280,8 @@ def lint_source(
             sup = per_line.get(f.line, frozenset()) | file_wide
             if f.rule in sup or "all" in sup:
                 suppressed += 1
+                if tally is not None:
+                    tally[f.rule] = tally.get(f.rule, 0) + 1
             else:
                 findings.append(f)
     findings.sort()
@@ -274,7 +289,7 @@ def lint_source(
 
 
 def lint_file(
-    path: Path, rules: Optional[list] = None
+    path: Path, rules: Optional[list] = None, tally: Optional[dict] = None
 ) -> tuple[list[Finding], int, bool]:
     """-> (findings, suppressed, was_linted)."""
     rel = _package_rel(path)
@@ -283,7 +298,7 @@ def lint_file(
     source = path.read_text(encoding="utf-8")
     try:
         findings, suppressed = lint_source(
-            source, rel=rel, path=str(path), rules=rules
+            source, rel=rel, path=str(path), rules=rules, tally=tally
         )
     except SyntaxError as e:
         return (
@@ -316,8 +331,9 @@ def lint_paths(
     findings: list[Finding] = []
     suppressed = 0
     linted = 0
+    tally: dict[str, int] = {}
     for f in files:
-        got, sup, used = lint_file(f, rules=rules)
+        got, sup, used = lint_file(f, rules=rules, tally=tally)
         findings.extend(got)
         suppressed += sup
         linted += int(used)
@@ -326,6 +342,7 @@ def lint_paths(
         "files": linted,
         "findings": len(findings),
         "suppressed": suppressed,
+        "suppressed_by_rule": dict(sorted(tally.items())),
     }
 
 

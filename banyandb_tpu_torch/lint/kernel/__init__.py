@@ -96,7 +96,7 @@ def stored_entries(registry=None, limit: int = 16):
                 args = precompile.mask_structs(spec)
             else:
                 continue
-            fn = anchor(spec)
+            fn = mod.kernel_for(spec)
         except Exception:  # noqa: BLE001 — a stale stored signature is
             continue  # skipped here exactly like warming skips it
         entries.append(

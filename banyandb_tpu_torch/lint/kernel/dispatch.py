@@ -135,6 +135,11 @@ def counting():
     patches = [
         (measure_exec, "ship", counting_ship),
         (measure_exec, "device_get", counting_get),
+        # fresh memos: a function built before the audit would bypass
+        # the counting builders below
+        (measure_exec, "_KERNEL_CACHE", {}),
+        (fused_exec, "_KERNEL_CACHE", {}),
+        (stream_exec, "_KERNEL_CACHE", {}),
         (measure_exec, "_build_kernel",
          _counting_builder(measure_exec._build_kernel, counters, "measure")),
         (fused_exec, "_build_kernel",

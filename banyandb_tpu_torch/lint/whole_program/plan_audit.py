@@ -313,7 +313,7 @@ def default_entries() -> list[KernelAudit]:
                 name=name,
                 path=mpath,
                 line=mline,
-                fn=measure_exec._build_kernel(spec),
+                fn=measure_exec.kernel_for(spec),
                 args=(
                     precompile.chunk_struct(spec),
                     precompile.pred_struct(spec),
@@ -330,7 +330,7 @@ def default_entries() -> list[KernelAudit]:
                 name=name,
                 path=spath,
                 line=sline,
-                fn=stream_exec._build_kernel(mspec),
+                fn=stream_exec.kernel_for(mspec),
                 args=precompile.mask_structs(mspec),
                 expect={"<out>": ("bool", (mspec.nrows,))},
                 cache_key=mspec,
@@ -356,7 +356,7 @@ def default_entries() -> list[KernelAudit]:
                     name=name,
                     path=fpath,
                     line=fline,
-                    fn=fused_exec._build_kernel(fspec),
+                    fn=fused_exec.kernel_for(fspec),
                     args=(
                         struct(fspec),
                         precompile.pred_struct(fspec.plan),

@@ -1,0 +1,458 @@
+"""bdwire checked-in policy: the wire-contract facts the analyzers gate.
+
+The port's own policy (the reference's is banyandb_tpu/lint/wire/
+wire_config.py): the same roles, topics, kinds, envelopes and fault
+sites under the port's quals, the port's instruments in OBS_CONTRACT,
+and the documents the port owns inside its package (FLAGS_DOC,
+OBS_DOC).
+
+This module is the protocol's source of truth the way layer_config.py is
+the layer map's: every table here is reviewed policy, not cache.  The
+analyzers (lint/wire/*.py) discover the live facts from the AST and
+diff them against these tables — drift in EITHER direction is a
+finding, so adding a topic, a wire kind, an envelope field or a fault
+boundary without updating the contract fails ``--check``.
+
+Tables:
+
+- ``ROLES`` / ``EXPECTED_MATRIX``   who registers which bus topics
+- ``CLIENT_TARGETS`` / ``TOPIC_EXEMPTIONS``   who dials whom, and which
+  role/topic gaps are by design (each with its reviewed reason)
+- ``DECLARED_KINDS`` / ``RETRYABLE_KINDS`` / ``TRANSPORT_KINDS`` /
+  ``CLASSIFIER_SWITCHES``   the wire-kind taxonomy and every site that
+  must stay exhaustive over it
+- ``ENVELOPE_GROUPS``   producer/consumer quals per envelope plane plus
+  the accepted write-only / silent-default baselines (ratcheted)
+- ``DISK_SCAN_PREFIXES`` / ``DISK_EXEMPT`` / ``SYNC_MODULES``   the
+  fault-coverage surface (cluster/faults.py sites)
+- ``RETRY_SUBSTRINGS`` / ``RETRY_EXEMPT``   what counts as reaching a
+  retry/spool/shed path after a retryable rejection
+- ``OBS_CONTRACT``   instrument name -> label-key set (OBS_DOC)
+- ``ENVFLAG_MODULE``   where the one BYDB_* parser + FLAGS registry live
+"""
+
+from __future__ import annotations
+
+PKG = "banyandb_tpu_torch"
+
+# -- roles: registrar functions whose reachable bus.subscribe() calls
+# define the role's served topic set --------------------------------------
+ROLES: dict[str, tuple[str, ...]] = {
+    "standalone": ("banyandb_tpu_torch.server:StandaloneServer._register",),
+    "liaison": ("banyandb_tpu_torch.cluster_server:LiaisonServer._register",),
+    "data": ("banyandb_tpu_torch.cluster.data_node:DataNode._register_handlers",),
+    # a worker serves the full DataNode surface plus the parent's
+    # control topic (registered in worker_main, the process entry)
+    "worker": (
+        "banyandb_tpu_torch.cluster.data_node:DataNode._register_handlers",
+        "banyandb_tpu_torch.cluster.workers:worker_main",
+    ),
+}
+
+# The golden role/topic matrix (scripts/wire_smoke.py prints it; the
+# topic analyzer fails on drift in either direction).  Sorted tuples.
+EXPECTED_MATRIX: dict[str, tuple[str, ...]] = {
+    "standalone": (
+        "bydbql",
+        "diagnostics",
+        "fodc-pprof",
+        "health",
+        "measure-query-raw",
+        "measure-write",
+        "measure-write-cols",
+        "metrics",
+        "property-apply",
+        "property-query",
+        "qos",
+        "registry",
+        "slowlog",
+        "snapshot",
+        "stream-query-user",
+        "stream-write",
+        "streamagg",
+        "topn",
+        "trace-query-by-id",
+        "trace-write",
+    ),
+    "liaison": (
+        "bydbql",
+        "health",
+        "measure-write",
+        "metrics",
+        "qos",
+        "rebalance",
+        "registry",
+        "slowlog",
+        "stream-write",
+        "streamagg",
+        "trace-query-by-id",
+        "trace-write",
+    ),
+    "data": (
+        "diagnostics",
+        "flush",
+        "health",
+        "measure-query-partial",
+        "measure-query-raw",
+        "measure-write",
+        "measure-write-cols",
+        "metrics",
+        "placement",
+        "rebalance",
+        "schema-digest",
+        "schema-get",
+        "schema-pull",
+        "schema-sync",
+        "stream-query",
+        "stream-write",
+        "streamagg",
+        "sync-part",
+        "topn",
+        "trace-query-by-id",
+        "trace-query-exec",
+        "trace-query-ordered",
+        "trace-write",
+    ),
+    "worker": (
+        "diagnostics",
+        "flush",
+        "health",
+        "measure-query-partial",
+        "measure-query-raw",
+        "measure-write",
+        "measure-write-cols",
+        "metrics",
+        "placement",
+        "rebalance",
+        "schema-digest",
+        "schema-get",
+        "schema-pull",
+        "schema-sync",
+        "stream-query",
+        "stream-write",
+        "streamagg",
+        "sync-part",
+        "topn",
+        "trace-query-by-id",
+        "trace-query-exec",
+        "trace-query-ordered",
+        "trace-write",
+        "worker-ctl",
+    ),
+}
+
+# Which roles each client module dials.  Every resolved topic a module
+# invokes must be served by EVERY listed role, or carry a
+# TOPIC_EXEMPTIONS entry.
+CLIENT_TARGETS: dict[str, tuple[str, ...]] = {
+    "banyandb_tpu_torch.cli": ("standalone", "liaison"),
+    "banyandb_tpu_torch.cluster.liaison": ("data",),
+    "banyandb_tpu_torch.cluster_server": ("data",),
+    "banyandb_tpu_torch.cluster.rebalance": ("data",),
+    "banyandb_tpu_torch.cluster.schema_plane": ("data",),
+    "banyandb_tpu_torch.cluster.schema_gossip": ("data",),
+    "banyandb_tpu_torch.cluster.workers": ("worker",),
+    "banyandb_tpu_torch.admin.fodc": ("data",),
+}
+
+# (role, topic) pairs a client dials that the role does NOT serve — by
+# design, with the reviewed reason.  Removing the gap (registering the
+# handler) makes the entry stale, which fails the gate: the table only
+# shrinks.
+TOPIC_EXEMPTIONS: dict[tuple[str, str], str] = {
+    ("liaison", "snapshot"): (
+        "cli snapshot targets part-owning roles; the liaison holds no "
+        "parts (wqueue spool snapshots ride the data-node topic)"
+    ),
+    ("liaison", "property-apply"): (
+        "the property plane is standalone-only until the cold tier "
+        "lands its replicated property store (ROADMAP item 2)"
+    ),
+    ("liaison", "property-query"): (
+        "the property plane is standalone-only until the cold tier "
+        "lands its replicated property store (ROADMAP item 2)"
+    ),
+    ("standalone", "rebalance"): (
+        "a standalone server owns every shard by definition; there is "
+        "no placement to rebalance (cli rebalance is cluster-only)"
+    ),
+}
+
+# -- wire kinds -----------------------------------------------------------
+DECLARED_KINDS: tuple[str, ...] = ("deadline", "error", "shed", "stale_epoch")
+# kinds a healthy node uses to refuse work: the sender must retry /
+# spool / degrade, never evict (TransportError docstring, cluster/rpc.py)
+RETRYABLE_KINDS: frozenset[str] = frozenset(
+    {"deadline", "shed", "stale_epoch"}
+)
+
+# exception classes that carry a wire kind
+ERROR_CLASSES: tuple[str, ...] = ("TransportError",)
+
+# per-transport-module kind vocabulary: every kind literal the module
+# raises/classifies must appear here and vice versa (both-direction
+# drift fails).  A transport that cannot express a declared kind cannot
+# carry its contract.
+TRANSPORT_KINDS: dict[str, frozenset[str]] = {
+    "banyandb_tpu_torch.cluster.rpc": frozenset(DECLARED_KINDS),
+    # the worker wire relays rpc._error_kind's verdict through a dict
+    # passthrough ({"kind": _error_kind(e)}) — the only LITERALS the
+    # module itself speaks are the deadline raise and the "error"
+    # default; shed/stale_epoch ride the passthrough untyped
+    "banyandb_tpu_torch.cluster.workers": frozenset({"deadline", "error"}),
+}
+
+# classifier/receiver switches that must stay exhaustive: qual -> the
+# kind literals that MUST appear in the function body.  Adding a kind to
+# DECLARED_KINDS without teaching these sites fails the gate.
+CLASSIFIER_SWITCHES: dict[str, frozenset[str]] = {
+    # the one server-side exception->kind classifier (both transports)
+    "banyandb_tpu_torch.cluster.rpc:_error_kind": frozenset(DECLARED_KINDS),
+    # the write-plane delivery switch: every retryable kind needs an
+    # explicit healthy-node branch (the else marks the node dead)
+    "banyandb_tpu_torch.cluster.liaison:Liaison._deliver_writes": RETRYABLE_KINDS,
+    # the scatter failover switch: retryable kinds mark the guard, a
+    # hard error marks the node dead and retries elsewhere
+    "banyandb_tpu_torch.cluster.liaison:Liaison._scatter_one": frozenset(
+        {"deadline", "shed", "stale_epoch"}
+    ),
+}
+
+# -- envelope planes ------------------------------------------------------
+# Each group: producer quals (envelope-building functions; every dict
+# key/dict(x, k=...) keyword/subscript store inside them is a produced
+# field), consumer quals (topic handlers; env-param reads are consumed
+# fields, followed one hop when the env is passed whole), and the
+# ratcheted accepted sets.
+ENVELOPE_GROUPS: dict[str, dict] = {
+    "write": {
+        "producers": (
+            "banyandb_tpu_torch.cluster.liaison:Liaison.write_measure.env_for",
+            "banyandb_tpu_torch.cluster.liaison:Liaison.write_stream.env_for",
+            "banyandb_tpu_torch.cluster.liaison:Liaison.write_trace.env_for",
+            "banyandb_tpu_torch.cluster.liaison:Liaison._stamp_epoch",
+            "banyandb_tpu_torch.cluster.liaison:Liaison._stamp_tenant",
+        ),
+        "consumers": (
+            "banyandb_tpu_torch.cluster.data_node:DataNode._on_measure_write",
+            "banyandb_tpu_torch.cluster.data_node:DataNode._on_stream_write",
+            "banyandb_tpu_torch.cluster.data_node:DataNode._on_trace_write",
+        ),
+        "accepted_write_only": {},
+        "accepted_silent_default": {
+            "ordered_tags": (
+                "trace writes spooled before the ordered-retrieval era "
+                "replay without the field; the () default degrades to "
+                "unordered sidx build instead of stranding the spool"
+            ),
+        },
+    },
+    "scatter": {
+        "producers": (
+            "banyandb_tpu_torch.cluster.liaison:Liaison._scatter_one",
+            "banyandb_tpu_torch.cluster.liaison:Liaison._stamp_epoch",
+        ),
+        "consumers": (
+            "banyandb_tpu_torch.cluster.data_node:DataNode._on_measure_query_partial",
+            "banyandb_tpu_torch.cluster.data_node:DataNode._on_measure_query_raw",
+            "banyandb_tpu_torch.cluster.data_node:DataNode._on_stream_query",
+            "banyandb_tpu_torch.cluster.data_node:DataNode._on_trace_query_exec",
+            "banyandb_tpu_torch.cluster.data_node:DataNode._on_trace_query_ordered",
+        ),
+        "accepted_write_only": {},
+        "accepted_silent_default": {},
+    },
+    "sync": {
+        "producers": (
+            "banyandb_tpu_torch.cluster.liaison:ChunkedSyncClient.sync_part",
+        ),
+        "consumers": (
+            "banyandb_tpu_torch.cluster.data_node:DataNode._on_sync_part",
+        ),
+        "accepted_write_only": {},
+        "accepted_silent_default": {},
+    },
+}
+
+# -- fault-site coverage --------------------------------------------------
+# transports whose .call() needs no maybe_fail_rpc hook, with reasons
+FAULT_TRANSPORT_EXEMPT: dict[str, str] = {}
+# modules whose spool/part write boundaries the disk site must cover
+DISK_SCAN_PREFIXES: tuple[str, ...] = ("banyandb_tpu_torch.cluster.",)
+# (module, function-suffix) -> reason: disk writes that are NOT part of
+# the spool/part data plane (control-plane metadata, bounded caches)
+DISK_EXEMPT: dict[tuple[str, str], str] = {
+    ("banyandb_tpu_torch.cluster.data_node", "DataNode.__init__"): (
+        "advisory .bydb-node.pid owner record at startup; a failed "
+        "write fails the boot, there is no wire retry to exercise"
+    ),
+    ("banyandb_tpu_torch.cluster.workers", "WorkerClient.__init__"): (
+        "worker.log append handle opened once at spawn for crash "
+        "forensics; no data-plane bytes ride it"
+    ),
+}
+# modules that must carry at least one plane_sync_injector hook
+SYNC_MODULES: tuple[str, ...] = ("banyandb_tpu_torch.cluster.chunked_sync",)
+
+# -- retryable handling ---------------------------------------------------
+# A TransportError handler body (or a call it makes) must reach one of
+# these — substring match on called-name segments — to count as a
+# retry/spool/shed path rather than a bare swallow/raise.
+RETRY_SUBSTRINGS: tuple[str, ...] = (
+    "retry",
+    "retries",
+    "spool",
+    "replay",
+    "restart",
+    "respawn",
+    "mark",
+    "evict",
+    "reload",
+    "shed",
+    "degrad",
+    "requeue",
+    "pending",
+    "failover",
+    "backoff",
+    "redeliver",
+    "probe",
+)
+# qual -> reason: handlers that legitimately terminate the error
+RETRY_EXEMPT: dict[str, str] = {
+    "banyandb_tpu_torch.admin.fodc:FodcProxy._poll_node": (
+        "terminal diagnostics collector: an unreachable node is "
+        "REPORTED as unreachable in the bundle — that is the output"
+    ),
+    "banyandb_tpu_torch.cluster.liaison:Liaison.probe": (
+        "the probe IS the recovery detector; the supervisor's next "
+        "probe tick retries by construction"
+    ),
+    "banyandb_tpu_torch.cluster.liaison:Liaison.schema_barrier": (
+        "the enclosing barrier loop polls until its deadline; one "
+        "failed round is just a not-yet-converged node"
+    ),
+    "banyandb_tpu_torch.cluster.rebalance:Rebalancer._ship_round": (
+        "a missing remote manifest degrades to have={} and ships "
+        "every part — over-shipping is the recovery"
+    ),
+    "banyandb_tpu_torch.cluster.rebalance:ReplicaRepairer.run_once": (
+        "anti-entropy: a failed repair leg is retried on the next "
+        "repair round, state lives in the part manifests"
+    ),
+    "banyandb_tpu_torch.cluster.schema_gossip:SchemaGossiper.run_once": (
+        "anti-entropy: digests re-exchange next gossip round; no "
+        "per-message recovery exists or is needed"
+    ),
+    "banyandb_tpu_torch.cluster.schema_plane:LiaisonBarrier.await_deleted.check": (
+        "await-loop predicate: the caller polls check() until its "
+        "deadline; a transport failure is one false poll"
+    ),
+    "banyandb_tpu_torch.cluster.workers:WorkerPool._forward_write": (
+        "journal-ack spool: the parent journal holds the write until "
+        "the worker acks; restart replay redelivers it"
+    ),
+    "banyandb_tpu_torch.cluster.workers:WorkerPool.topn": (
+        "scatter degrades over surviving workers; the supervisor "
+        "restarts the dead one out of band"
+    ),
+    "banyandb_tpu_torch.cluster.workers:WorkerPool.streamagg": (
+        "stats fan-in is degradable: a missing worker's slice is "
+        "absent from the merged view until its restart"
+    ),
+    "banyandb_tpu_torch.cluster.workers:WorkerPool.flush": (
+        "the supervise tick re-drives flush; the journal watermark "
+        "guarantees nothing is lost between ticks"
+    ),
+    "banyandb_tpu_torch.cluster.workers:WorkerPool._restart": (
+        "kill+close then re-raise to the supervise loop, which "
+        "respawns the worker — the raise IS the recovery hand-off"
+    ),
+    "banyandb_tpu_torch.cluster.workers:WorkerPool._supervise": (
+        "the supervise loop is the retry: failure state persists to "
+        "the next tick's health pass"
+    ),
+    "banyandb_tpu_torch.cluster.workers:WorkerPool.stop": (
+        "best-effort shutdown: a worker that cannot be told to stop "
+        "is killed by the process-group teardown"
+    ),
+}
+
+# -- env-flag registry ----------------------------------------------------
+ENVFLAG_MODULE = "banyandb_tpu_torch.utils.envflag"
+ENVFLAG_FUNCS = ("env_flag", "env_int", "env_float", "env_str")
+ENV_PREFIX = "BYDB_"
+# relative to the directory that holds the package: the port's own copy
+# of the flag reference, inside the package
+FLAGS_DOC = "banyandb_tpu_torch/docs/flags.md"
+
+# -- obs contract ---------------------------------------------------------
+# instrument name -> the one label-key set every call site must use
+# (frozenset(); None = pattern entry, names are matched as prefixes for
+# f-string instruments).  docs/observability.md must mention each name.
+# Populated from the audited inventory; drift in either direction fails.
+OBS_CONTRACT: dict[str, frozenset | None] = {
+    # f-string families (prefix patterns); labels pinned where the
+    # whole family shares one set
+    "autoreg_*": frozenset(),
+    "compile_cache_*": frozenset(),
+    "precompile_*": frozenset(),
+    "qos_*": frozenset({"tenant"}),
+    "rpc_*": frozenset({"topic"}),
+    "serving_cache_*": frozenset({"tenant"}),
+    # exact instruments
+    "autoreg_signatures": frozenset({"source"}),
+    "blocks_skipped": frozenset({"reason"}),
+    "compile_cache_enabled": frozenset(),
+    "decode_ship_bytes": frozenset({"form"}),
+    "failover_attempts": frozenset(),
+    "fault_injected": frozenset({"kind", "site"}),
+    # the hand kernels' launch counters (ops/hopper_kernels.LAUNCHES,
+    # published per process by obs.metrics) and the kernel audit's
+    # per-signature op budget (lint/kernel/kernel_budgets)
+    "kernel_launch_budget": frozenset({"signature"}),
+    "kernel_launches": frozenset({"kernel"}),
+    "lifecycle_stage_ms": frozenset({"stage"}),
+    "measure_query_ms": frozenset(),
+    "measure_write_points": frozenset(),
+    "placement_epoch": frozenset(),
+    "planner_decisions": frozenset({"path"}),
+    "qos_enabled": frozenset(),
+    "qos_inflight_bytes": frozenset({"tenant"}),
+    "qos_inflight_shed": frozenset({"tenant"}),
+    "qos_query_active": frozenset({"tenant"}),
+    "qos_query_waiting": frozenset({"tenant"}),
+    "qos_queue_ms": frozenset({"tenant"}),
+    "query_degraded": frozenset({"engine"}),
+    "query_ms": frozenset({"engine"}),
+    "query_stage_ms": frozenset({"stage"}),
+    "rebalance_parts_moved": frozenset(),
+    "rebalance_parts_planned": frozenset(),
+    "rebalance_shards_to_move": frozenset(),
+    "repair_parts_shipped": frozenset(),
+    "rss_bytes": frozenset(),
+    "selftrace_dropped": frozenset(),
+    "selftrace_spans": frozenset(),
+    "stale_epoch_rejected": frozenset({"site"}),
+    "streamagg_invalidated": frozenset(),
+    "streamagg_late_dropped": frozenset(),
+    "streamagg_reads": frozenset({"kind"}),
+    "streamagg_rows": frozenset(),
+    "streamagg_signatures": frozenset(),
+    "streamagg_states": frozenset(),
+    "streamagg_watermark_ms": frozenset({"signature"}),
+    "streamagg_windows": frozenset(),
+    "streamagg_windows_evicted": frozenset(),
+    "worker_journal_shed": frozenset({"worker"}),
+    "worker_restarts": frozenset({"worker"}),
+    "workers_alive": frozenset(),
+    "workers_total": frozenset(),
+    "wqueue_sealed_rows": frozenset(),
+    "wqueue_shed": frozenset(),
+    "wqueue_ship_retry": frozenset(),
+    "wqueue_shipped": frozenset(),
+    # bytes of parts the write queue shipped over chunked sync
+    "wqueue_shipped_bytes": frozenset(),
+    "wqueue_spool_bytes": frozenset(),
+    "write_ms": frozenset({"model"}),
+}
+OBS_DOC = "banyandb_tpu_torch/docs/observability.md"

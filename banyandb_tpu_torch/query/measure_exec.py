@@ -237,6 +237,21 @@ def _kernel_body(spec: PlanSpec):
     return kernel
 
 
+# plan spec -> staged per-chunk function, the memo kernel_for reads
+# through (the builders are cheap closures, but a per-call build is
+# exactly the churn the recompile-hazard rule keeps out)
+_KERNEL_CACHE: dict[PlanSpec, object] = {}
+
+
+def kernel_for(spec: PlanSpec):
+    """The staged per-chunk function of `spec`, built once: the query
+    path, the precompile warm and the plan audit all read it here."""
+    kernel = _KERNEL_CACHE.get(spec)
+    if kernel is None:
+        kernel = _KERNEL_CACHE[spec] = _build_kernel(spec)
+    return kernel
+
+
 def _build_kernel(spec: PlanSpec):
     """The staged executor's per-chunk function for `spec`.
 
@@ -279,6 +294,9 @@ def device_get(tree):
 
     moved = issue(tree)
     for dev in set(pending):
+        # bdlint: disable=host-sync -- THE boundary: every copy above
+        # was issued without blocking; this one wait per device covers
+        # them all (the port's counterpart of jax.device_get)
         torch.cuda.current_stream(dev).synchronize()
 
     def to_np(x):
@@ -880,7 +898,7 @@ def compute_partials(
         want_rep=want_rep,
         rep_desc=rep_desc,
     )
-    kernel = _build_kernel(spec)
+    kernel = kernel_for(spec)
     # function-local import: precompile imports this module's builders
     from banyandb_tpu_torch.query.precompile import default_registry
 
@@ -1193,15 +1211,16 @@ def _reduce_partials(
             dispatches += 1
             if pending is not None:
                 t_d = _time.perf_counter()
-                # the result boundary: one batched transfer per chunk,
-                # issued after the next chunk's dispatch above
+                # bdlint: disable=host-sync -- the result boundary: one
+                # batched transfer per chunk, issued after the next
+                # chunk's dispatch above
                 moved = device_get(pending)
                 device_s += _time.perf_counter() - t_d
                 _absorb(moved)
             pending = out
         if pending is not None:
             t_d = _time.perf_counter()
-            # final chunk's result boundary
+            # bdlint: disable=host-sync -- final chunk's result boundary
             moved = device_get(pending)
             device_s += _time.perf_counter() - t_d
             _absorb(moved)

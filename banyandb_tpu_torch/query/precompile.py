@@ -418,16 +418,17 @@ def fused_decode_warm_args(fspec, device) -> tuple:
 
 
 def signature_function(kind: str, spec):
-    """-> the per-chunk (or per-batch) function of one signature, or
-    None for an unknown kind."""
+    """-> the per-chunk (or per-batch) function of one signature, from
+    the executor's memo the query path reads too, or None for an
+    unknown kind."""
     from banyandb_tpu_torch.query import fused_exec, measure_exec, stream_exec
 
-    build = {
-        "measure": measure_exec._build_kernel,
-        "fused": fused_exec._build_kernel,
-        "stream_mask": stream_exec._build_kernel,
+    mod = {
+        "measure": measure_exec,
+        "fused": fused_exec,
+        "stream_mask": stream_exec,
     }.get(kind)
-    return None if build is None else build(spec)
+    return None if mod is None else mod.kernel_for(spec)
 
 
 def warm_args(kind: str, spec, device, decode: bool) -> list[tuple]:
@@ -689,6 +690,9 @@ class PrecompileRegistry:
             for args in args_list:
                 fn(*args)
             if on_card:
+                # bdlint: disable=host-sync -- warming runs on a
+                # background thread and MUST block until the launches
+                # finish; there is no result to batch
                 torch.cuda.synchronize(dev)
 
     def warm(self, include_builtin: bool = True, sigs=None) -> int:

@@ -64,6 +64,19 @@ def _ship(col: np.ndarray, device):
     return measure_exec.ship(col, device)
 
 
+# spec -> mask function, the memo kernel_for reads through
+_KERNEL_CACHE: dict[_MaskSpec, object] = {}
+
+
+def kernel_for(spec: _MaskSpec):
+    """The mask function of `spec`, built once: the query path, the
+    precompile warm and the plan audit all read it here."""
+    kernel = _KERNEL_CACHE.get(spec)
+    if kernel is None:
+        kernel = _KERNEL_CACHE[spec] = _build_kernel(spec)
+    return kernel
+
+
 def _build_kernel(spec: _MaskSpec):
     """The mask function of `spec`: (cols, pred_vals) -> bool mask on the
     columns' device.  Columns arrive at their stored width (the
@@ -130,11 +143,11 @@ def device_tag_mask(src: ColumnData, conds: list[Condition], device):
             preds.append((c.op, 1))
             vals.append(lut.get(tag_value_bytes(c.value), -1))
     spec = _MaskSpec(preds=tuple(preds), nrows=_pad_bucket(n))
-    mask = _build_kernel(spec)(cols, vals)
+    mask = kernel_for(spec)(cols, vals)
     default_registry().record("stream_mask", spec)
     STATS["device_masks"] += 1
-    # the retrieval result boundary: the whole bool mask moves in one
-    # transfer; the host gather needs it
+    # bdlint: disable=host-sync -- the retrieval result boundary: the
+    # whole bool mask moves in one transfer; the host gather needs it
     return measure_exec.device_get(mask)
 
 

@@ -1,16 +1,25 @@
 """bdsan runtime sanitizers: lock-order witnesses + leak tracking +
-crash diagnostics.  The dynamic half of the race/leak hunting layer
-(docs/sanitizers.md); the static half is bdlint's ``wp-shared-state`` /
-``lock-order`` whole-program analyses.
+crash diagnostics (the port's copy of banyandb_tpu/sanitize).  The
+dynamic half of the race/leak hunting layer; the static half is bdlint's
+``wp-shared-state`` / ``lock-order`` whole-program analyses.
 
-Gate: ``BYDB_SANITIZE=1``.  In the JAX package ``install()`` patches
-``threading.Lock``/``RLock`` with lock-order witnesses mapped to their
-static declaration identities (``sanitize/lockwatch.py``), which needs
-the whole-program lint's call graph and lock-order model.  Those come to
-this package with ROADMAP.md Queue 1 item 9; until then ``install()``
-raises ``NotImplementedError``.  The leak-tracking primitives
-(``leaks.py``: threads, fds and the child processes of
-``utils.procreg``) and the watchdog work here as there.
+Gate: ``BYDB_SANITIZE=1``.  ``install()`` is idempotent and does three
+things:
+
+1. patches ``threading.Lock``/``RLock`` so locks created by the port's
+   package code record acquisition-order witness edges mapped to their
+   static declaration identities (lockwatch.py, over the port's own call
+   graph and lock-order model);
+2. enables ``faulthandler`` so a wedged process dumps every thread's
+   stack on SIGABRT/SIGSEGV and on the watchdog
+   (``arm_watchdog``/``disarm_watchdog``);
+3. exposes the leak-tracking primitives (leaks.py: threads, fds and the
+   child processes of ``utils.procreg``) the stress tests build on.
+
+Call ``install()`` before the threaded classes are constructed (before
+the server is imported), so every lock they make is traced.  Everything
+here is import-light until install() runs: the static lock model (an
+AST pass over the package) loads once, lazily.
 """
 
 from __future__ import annotations
@@ -26,15 +35,19 @@ _installed = False
 
 
 def install() -> bool:
-    """Install the runtime sanitizers: the lock-order witnesses need
-    ``sanitize.lockwatch`` and the whole-program lint, which are not
-    ported yet (ROADMAP.md Queue 1 item 9)."""
-    raise NotImplementedError(
-        "sanitize.install() needs sanitize.lockwatch and "
-        "lint.whole_program.{callgraph, lockorder}, which are not ported "
-        "to banyandb_tpu_torch yet (ROADMAP.md Queue 1 item 9); the leak "
-        "tracking in sanitize.leaks works without it"
-    )
+    """Install the runtime sanitizers (idempotent).  Returns True when
+    active after the call."""
+    global _installed
+    if _installed:
+        return True
+    import faulthandler
+
+    from banyandb_tpu_torch.sanitize import lockwatch
+
+    lockwatch.install()
+    faulthandler.enable()
+    _installed = True
+    return True
 
 
 def installed() -> bool:

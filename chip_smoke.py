@@ -152,15 +152,29 @@ before the last line is printed:
    read before and after the asks).  One ``{"grpc_cluster": ...}``
    line (ingest rate, parts and bytes shipped, each ask's wall, each
    data process's launches, builds and loads);
-19. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
+19. lint and sanitizers, two fresh processes: (a) the static gate,
+   ``python -m banyandb_tpu_torch.lint --check --format json
+   banyandb_tpu_torch``, run with JAX made unimportable, must exit 0;
+   its wall and the finding and suppression counts per rule are
+   recorded; (b) a sanitized server (``--sanitize-child``, started with
+   ``BYDB_SANITIZE=1``, ``sanitize.install()`` before the server is
+   imported): phase 13's configuration uncut (4,194,304 points in 64
+   ``measure-write-cols`` envelopes), phase 6's TOP 10 and p50/p99
+   three times each while a second thread writes 65,536 points into a
+   second measure of the same group; each ask equal to phase 13's and
+   to numpy, the second measure's count 65,536, then ``stop()``: no
+   runtime lock-order edge outside the declared graph, no leaked
+   thread, fd or process, ``fused_group_multi`` launched.  One
+   ``{"lint_sanitize": ...}`` line;
+20. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a path (4, 5, 6, 8, 10, the
-warm of 11, 12, the queries of 13, 15, each step of 16) is driven and
-read just after it
-(the workers of 14, the child of 17 and the data processes of 18 count
-in their own processes: their counts are read before and after the
-queries, and the difference is the path's);
+warm of 11, 12, the queries of 13, 15, each step of 16, the asks of 19)
+is driven and read just after it
+(the workers of 14, the child of 17, the data processes of 18 and the
+sanitized server of 19 count in their own processes: their counts are
+read before and after the queries, and the difference is the path's);
 each kernel of a path must have launched there (the stream path
 launches none of the four kernels: its mask is PyTorch compares on the
 card).  Phases 1-10 run with the precompile registry off
@@ -212,6 +226,7 @@ PATH_KERNELS = {
     "tier": ("fused_group_multi",),
     "wire": ("fused_group_multi",),
     "grpc_cluster": ("fused_group_multi",),
+    "sanitize": ("fused_group_multi",),
 }
 
 
@@ -2137,6 +2152,20 @@ def columns_envelope(pts: dict, lo: int, hi: int) -> dict:
     }
 
 
+def create_measure(handle, name: str) -> None:
+    """Phase 6's measure schema under `name` in group ``sw``, through the
+    registry topic."""
+    from banyandb_tpu_torch.api import schema as S
+
+    handle("registry", {"op": "create", "kind": "measure", "item": S._to_jsonable(S.Measure(
+        group=ENGINE_GROUP, name=name,
+        tags=(S.TagSpec("svc", S.TagType.STRING), S.TagSpec("region", S.TagType.STRING)),
+        fields=(S.FieldSpec("latency", S.FieldType.FLOAT),
+                S.FieldSpec("calls", S.FieldType.INT)),
+        entity=S.Entity(("svc", "region")),
+    ))})
+
+
 def server_schema(handle) -> None:
     """Phase 6's group and measure, and the other models' groups,
     through the registry topic."""
@@ -2146,13 +2175,7 @@ def server_schema(handle) -> None:
         handle("registry", {"op": "create", "kind": kind, "item": S._to_jsonable(obj)})
 
     create("group", S.Group(ENGINE_GROUP, S.Catalog.MEASURE, S.ResourceOpts(shard_num=2)))
-    create("measure", S.Measure(
-        group=ENGINE_GROUP, name="service_resp_time",
-        tags=(S.TagSpec("svc", S.TagType.STRING), S.TagSpec("region", S.TagType.STRING)),
-        fields=(S.FieldSpec("latency", S.FieldType.FLOAT),
-                S.FieldSpec("calls", S.FieldType.INT)),
-        entity=S.Entity(("svc", "region")),
-    ))
+    create_measure(handle, "service_resp_time")
     for name, cat in (("sg", S.Catalog.STREAM), ("tg", S.Catalog.TRACE),
                       ("pg", S.Catalog.PROPERTY)):
         create("group", S.Group(name, cat, S.ResourceOpts(shard_num=2)))
@@ -3888,6 +3911,225 @@ def grpc_phase(hk, root: str, n: int, device: str = "cuda", want=None) -> tuple:
     return launches, fig
 
 
+# -- phase 19: lint and sanitizers ------------------------------------------------
+
+# the second measure's points, written by a thread while the asks run, in
+# small envelopes so that the writes overlap the asks
+SANITIZE_EXTRA = 1 << 16
+SANITIZE_BATCH = 1 << 12
+SANITIZE_MEASURE = "service_resp_time_b"
+# `python -m banyandb_tpu_torch.lint --check --format json
+# banyandb_tpu_torch` with JAX made unimportable first: a machine that
+# has JAX installed still proves the gate needs none
+GATE_CODE = (
+    "import runpy, sys\n"
+    "sys.modules['jax'] = None\n"
+    "sys.argv = ['banyandb_tpu_torch.lint', '--check', '--format', 'json',\n"
+    "            'banyandb_tpu_torch']\n"
+    "runpy.run_module('banyandb_tpu_torch.lint', run_name='__main__',\n"
+    "                 alter_sys=True)\n"
+)
+
+
+def gate_run(here: str) -> dict:
+    """Phase 19 (a): the port's static gate in a fresh process -> its
+    wall, and its finding and suppression counts per rule."""
+    import importlib.util
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", GATE_CODE], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, timeout=900,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:] + proc.stderr[-4000:])
+    check(proc.returncode == 0, f"lint gate exited {proc.returncode}")
+    run = json.loads(proc.stdout)["runs"][0]
+    props = run["properties"]
+    findings: dict = {}
+    for res in run["results"]:
+        findings[res["ruleId"]] = findings.get(res["ruleId"], 0) + 1
+    return {
+        "wall_s": wall,
+        "jax_importable": importlib.util.find_spec("jax") is not None,
+        "files": props["files"],
+        "functions": props["wp_functions"],
+        "rules": len(run["tool"]["driver"]["rules"]),
+        "findings": findings,
+        "suppressed": {**props["suppressed_by_rule"],
+                       **props["wp_suppressed_by_rule"]},
+        "kernel_signatures": props["kernel_signatures"],
+    }
+
+
+def sanitize_child(root: str, out_path: str, n: str, device: str) -> int:
+    """The sanitized server of phase 19 (run by lint_sanitize_phase with
+    ``BYDB_SANITIZE=1`` and phase 13's environment): the sanitizers go in
+    before the server is imported, then phase 13's configuration and
+    asks while a second thread writes into a second measure, then
+    ``stop()`` and the lock-order and leak checks.  Writes its answers
+    and figures to `out_path` as JSON."""
+    import gc
+    import threading
+
+    n = int(n)
+    from banyandb_tpu_torch import sanitize
+
+    check(sanitize.enabled(), "sanitize child: BYDB_SANITIZE is not on")
+    t0 = time.perf_counter()
+    sanitize.install()
+    install_s = time.perf_counter() - t0
+    import torch
+
+    from banyandb_tpu_torch.ops import hopper_kernels as hk
+    from banyandb_tpu_torch.query import measure_exec, precompile
+    from banyandb_tpu_torch.sanitize import leaks, lockwatch
+
+    if device == "cuda":
+        hk.build()  # loads the library the parent built
+    # the process-wide handles of the card (its device files, the pinned
+    # host pool) open on first use: open them before the leak tracker's
+    # snapshot, so that only the server's own threads and fds count
+    measure_exec.device_get({"x": torch.ones(8, device=device)})
+    tracker = leaks.LeakTracker().snapshot()
+    from banyandb_tpu_torch.server import StandaloneServer
+
+    fig: dict = {"points": n, "extra_points": SANITIZE_EXTRA, "install_s": install_s}
+    reg = precompile.default_registry()
+    srv = StandaloneServer(root, device=device, slow_query_ms=0)
+    srv.start()
+    check(reg.wait_warm(600), "sanitized server: the warm did not finish")
+    handle = srv.bus.handle
+    server_schema(handle)
+    create_measure(handle, SANITIZE_MEASURE)
+
+    pts = make_points(n, SEED + 1)
+    write_s = 0.0
+    for lo in range(0, n, SERVER_BATCH):
+        env = columns_envelope(pts, lo, min(lo + SERVER_BATCH, n))
+        t1 = time.perf_counter()
+        reply = handle("measure-write-cols", env)
+        write_s += time.perf_counter() - t1
+        check(reply == {"written": min(SERVER_BATCH, n - lo)},
+              f"sanitized server write: {reply}")
+    handle("snapshot", {})
+    fig["ingest_s"] = write_s
+    fig["ingest_points_per_s"] = n / write_s
+    log(f"  sanitized server wrote {n} points in {-(-n // SERVER_BATCH)} envelopes: "
+        f"{write_s!r} s ({fig['ingest_points_per_s']!r} points/s)")
+
+    texts = engine_queries(n)
+    check(reg.wait_warm(600), "sanitized server: a flush warm did not finish")
+    extra = make_points(SANITIZE_EXTRA, SEED + 19)
+    errors: list = []
+
+    def writer():
+        try:
+            for lo in range(0, SANITIZE_EXTRA, SANITIZE_BATCH):
+                env = columns_envelope(extra, lo, lo + SANITIZE_BATCH)
+                env["name"] = SANITIZE_MEASURE
+                reply = handle("measure-write-cols", env)
+                if reply != {"written": SANITIZE_BATCH}:
+                    errors.append(reply)
+        except Exception as e:  # noqa: BLE001 - checked after the join
+            errors.append(repr(e))
+
+    hk.reset_launches()
+    thread = threading.Thread(target=writer, name="sanitize-writer")
+    thread.start()
+    walls, docs, served = {}, {}, {}
+    for name, ql in texts.items():
+        walls[name], served[name] = [], []
+        for i in range(3):
+            t1 = time.perf_counter()
+            reply = handle("bydbql", {"ql": ql})
+            walls[name].append((time.perf_counter() - t1) * 1e3)
+            served[name].append(reply["served"])
+            if i == 0:
+                docs[name] = reply["result"]
+            else:
+                check(json.dumps(reply["result"]) == json.dumps(docs[name]),
+                      f"sanitized server {name}: repeat run differs")
+    thread.join()
+    launches = dict(hk.LAUNCHES)
+    check(not errors, f"sanitized server: second-measure writer failed: {errors}")
+    span = f"TIME BETWEEN {T0} AND {T0 + SANITIZE_EXTRA - 1}"
+    got = handle("bydbql", {"ql": f"SELECT count(calls) FROM MEASURE {SANITIZE_MEASURE} "
+                                  f"IN {ENGINE_GROUP} {span}"})
+    counted = sum(got["result"]["values"]["count(calls)"])
+    check(counted == SANITIZE_EXTRA,
+          f"sanitized server: the second measure counts {counted}, wrote {SANITIZE_EXTRA}")
+    server_oracle(pts, n, docs, "sanitized server")
+    for k in PATH_KERNELS["sanitize"] if device == "cuda" else ():
+        check(launches[k] > 0, f"sanitized server: {k} not launched")
+    traced = [o for o in gc.get_objects() if type(o) is lockwatch.TracedLock]
+    fig["traced_locks"] = len(traced)
+    fig["traced_lock_ids"] = len({lk.lock_id for lk in traced})
+    srv.stop()
+    edges = lockwatch.watch().snapshot_edges()
+    undeclared = lockwatch.undeclared_edges(edges)
+    report = tracker.check(grace_s=10.0)
+    fig.update({
+        "walls_ms": walls, "served": served, "runtime_edges": len(edges),
+        "declared_edges": len(lockwatch.load_static().declared),
+        "undeclared_edges": [f"{w.held} -> {w.acquired} at {w.site} [{w.thread}]"
+                             for w in undeclared],
+        "leaks": report.render(),
+    })
+    log(f"  sanitized server: {fig['traced_locks']} traced locks "
+        f"({fig['traced_lock_ids']} declarations), {len(edges)} runtime edges, "
+        f"{len(undeclared)} undeclared; leaks: {fig['leaks']}")
+    for line in fig["undeclared_edges"]:
+        log(f"    undeclared: {line}")
+    with open(out_path, "w") as f:
+        json.dump({"launches": launches, "fig": fig, "docs": docs}, f)
+    check(not undeclared, f"sanitized server: {len(undeclared)} undeclared lock edges")
+    check(report.clean(), f"sanitized server: {report.render()}")
+    return 0
+
+
+def lint_sanitize_phase(root: str, n: int, device: str, want: dict,
+                        server_fig: dict) -> tuple:
+    """Phase 19: the static gate and the sanitized server, each in a fresh
+    process; `want` and `server_fig` are phase 13's answers and figures.
+    -> (the sanitized server's launches over the asks, the figures of
+    the {"lint_sanitize": ...} line)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    gate = gate_run(here)
+    check(not gate["findings"], f"lint gate findings: {gate['findings']}")
+    log(f"  ok  lint gate: exit 0 in {gate['wall_s']:.3f} s over {gate['files']} files "
+        f"and {gate['functions']} functions, {gate['rules']} rules, JAX importable: "
+        f"{gate['jax_importable']}; suppressed {gate['suppressed']}")
+    out_path = os.path.join(root, "sanitize.json")
+    env = dict(os.environ, BYDB_SANITIZE="1", **SERVER_ENV)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--sanitize-child",
+         os.path.join(root, "server"), out_path, str(n), device],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, timeout=900,
+    )
+    child_s = time.perf_counter() - t0
+    log("\n".join(proc.stdout.splitlines()[-40:]))
+    check(proc.returncode == 0, f"sanitized server child exited {proc.returncode}")
+    with open(out_path) as f:
+        doc = json.load(f)
+    for name in ("topn", "percentile"):
+        check(json.dumps(doc["docs"][name]) == json.dumps(want[name]),
+              f"sanitized server {name}: differs from phase 13")
+    log("  ok  sanitized server: each ask equals phase 13's answer and numpy")
+    fig = {
+        "gate": gate,
+        "child_s": child_s,
+        **doc["fig"],
+        "phase13": {"ingest_points_per_s": server_fig["ingest_points_per_s"],
+                    "walls_ms": server_fig["walls_ms"]},
+        "launches": doc["launches"],
+    }
+    return doc["launches"], fig
+
+
 def main() -> int:
     try:
         import torch
@@ -3904,6 +4146,8 @@ def main() -> int:
         return wire_child(*sys.argv[2:])
     if sys.argv[1:2] == ["--grpc-liaison-child"]:  # the liaison of phase 18
         return grpc_liaison_child(*sys.argv[2:])
+    if sys.argv[1:2] == ["--sanitize-child"]:  # the sanitized server of phase 19
+        return sanitize_child(*sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4003,7 +4247,13 @@ def main() -> int:
         paths["grpc_cluster"], grpc_fig = grpc_phase(
             hk, root, GRPC_N, "cuda", want=cluster["host"])
     print(json.dumps({"grpc_cluster": grpc_fig}), flush=True)
-    phase("[19] all phases done")
+    with tempfile.TemporaryDirectory(prefix="bydb-smoke-sanitize-") as root:
+        phase(f"[19] lint and sanitizers: the static gate, then {N_POINTS} points and "
+              f"phase 13's asks through a sanitized server beside a writer")
+        paths["sanitize"], sanitize_fig = lint_sanitize_phase(
+            root, N_POINTS, "cuda", server_docs, server_fig)
+    print(json.dumps({"lint_sanitize": sanitize_fig}), flush=True)
+    phase("[20] all phases done")
     for path, kernels in PATH_KERNELS.items():
         for k in kernels:
             check(paths[path][k] > 0, f"{k}: not launched on the {path} path")

@@ -412,13 +412,16 @@ def test_budget_table_agrees_with_plan_audit_matrix():
 
 
 def test_kernel_rules_catalogued():
-    from banyandb_tpu_torch.lint.core import _rule_catalog
+    from banyandb_tpu_torch.lint.core import _rule_catalog, all_rules
     from banyandb_tpu_torch.lint.whole_program import WP_RULES
 
     names = {n for n, _ in WP_RULES}
     assert {n for n, _ in KERNEL_RULES} <= names
     assert "plan-audit" in names
-    assert {n for n, _ in _rule_catalog()} == names | {"parse-error"}
+    per_file = {r.name for r in all_rules()}
+    assert {n for n, _ in _rule_catalog()} == (
+        names | per_file | {"parse-error"}
+    )
 
 
 def test_publish_budgets_to_meter():
