@@ -118,6 +118,10 @@ CONFIG = LayerConfig(
         "mcp_server": L6,
         "run": L6,
         "cli": L6,
+        # the driver entry point and the operating harnesses (load/SLO,
+        # replay soak, chaos): they compose servers, clusters and meshes
+        "entry": L6,
+        "harness": L6,
         "lint": L6,
         # the ATen-op walk of the kernel audit (the jaxpr audit's
         # counterpart)

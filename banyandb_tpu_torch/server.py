@@ -1104,6 +1104,13 @@ class StandaloneServer:
             # close, processes reap (procreg process hygiene)
             self.pool.stop()
         self.access_log.close()
+        # every acked row still in a memtable becomes a part before the
+        # engines close: with no ingress left nothing lands after it, and
+        # a reopen over this root answers every acknowledged write (the
+        # reference closes without it and loses the memtables' rows)
+        self.measure.flush()
+        self.stream.flush()
+        self.trace.flush()
         # release index mmaps/fds deterministically (fd hygiene)
         self.measure.close()
         self.stream.close()

@@ -166,15 +166,43 @@ before the last line is printed:
    runtime lock-order edge outside the declared graph, no leaked
    thread, fd or process, ``fused_group_multi`` launched.  One
    ``{"lint_sanitize": ...}`` line;
-20. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
+20. entry and dryrun: ``banyandb_tpu_torch.entry.entry("cuda")``'s
+   step (the flagship plan signature, 8,192 rows, 64 groups) on the
+   card against the same step on the CPU (counts, min/max and histogram
+   equal; sums within rtol 1e-5), then ``dryrun_multichip(4)`` and
+   ``(8)`` over 4 and 8 slots on the one card, each against the host
+   union and through a liaison's mesh fast path.  One ``{"entry": ...}``
+   line;
+21. soak: ``harness.soak.run_soak`` for 50 s at its defaults (seed 0,
+   400-point batches every 5 queries, flushes and merges) over three
+   topologies on the card: a standalone engine, a two-node cluster and
+   a 2 x 2 mesh of slots; 0 divergences and 0 errors, the mesh ran
+   queries.  One ``{"soak": ...}`` line (queries, writes, launches by
+   topology);
+22. chaos: ``harness.chaos.run_smoke`` (seed 42) with data nodes and
+   shard workers on the card: write-queue kill cycles, degradation
+   markers, a seeded fault schedule, worker kill cycles and a rebalance
+   under a kill; the reference's invariants (kill cycles >= 3, a
+   degraded answer, faults injected, every query within 4.0 s, worker
+   kill cycles >= 2 with degraded windows under 45 s, zero acked loss).
+   One ``{"chaos": ...}`` line;
+23. load: ``harness.load.run_load`` on the card for 45 s (2 writers at
+   9,500 points/s in all, 4 queriers, batches of 500, a real gRPC
+   socket); 0 write and query errors; the server reopened over its root
+   counts every acked point back, from its materialized windows and
+   from a rescan.  One ``{"load": ...}`` line (with ``cores`` and the
+   served composition);
+24. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every launch count is set to 0 just before a path (4, 5, 6, 8, 10, the
-warm of 11, 12, the queries of 13, 15, each step of 16, the asks of 19)
-is driven and read just after it
+warm of 11, 12, the queries of 13, 15, each step of 16, the asks of 19,
+20, 21, 22, 23) is driven and read just after it
 (the workers of 14, the child of 17, the data processes of 18 and the
 sanitized server of 19 count in their own processes: their counts are
-read before and after the queries, and the difference is the path's);
+read before and after the queries, and the difference is the path's;
+the chaos harness's shard workers count in theirs, unread: its
+measure's field is FLOAT, which reduces on the host);
 each kernel of a path must have launched there (the stream path
 launches none of the four kernels: its mask is PyTorch compares on the
 card).  Phases 1-10 run with the precompile registry off
@@ -227,6 +255,9 @@ PATH_KERNELS = {
     "wire": ("fused_group_multi",),
     "grpc_cluster": ("fused_group_multi",),
     "sanitize": ("fused_group_multi",),
+    "entry": ("fused_group_multi",),
+    "dryrun": ("fused_group_multi",),
+    "soak": ("fused_group_multi",),
 }
 
 
@@ -4130,6 +4161,184 @@ def lint_sanitize_phase(root: str, n: int, device: str, want: dict,
     return doc["launches"], fig
 
 
+# -- phases 20-23: the driver entry point and the operating harnesses ---------
+
+DRYRUN_SLOTS = (4, 8)
+SOAK_S = 50.0  # the replay soak's wall, at its defaults (seed 0, 400-point batches)
+SOAK_MESH_SLOTS = 4  # the soak's third topology: a 2 x 2 mesh of slots on the card
+CHAOS_SEED = 42  # the chaos harness's default seed
+CHAOS_BUDGET_S = 4.0  # a chaos query's wall limit (tests/test_chaos.py)
+CHAOS_WINDOW_S = 45.0  # a killed worker's degraded window limit
+LOAD_S = 45.0
+LOAD_RATE = 9_500  # points/s: the reference benchmark's fixed ingest rate
+
+
+def entry_phase(hk, device: str) -> tuple:
+    """Phase 20: ``entry()``'s step on `device` against the same step on
+    the CPU (the kernels' plain versions), then ``dryrun_multichip(n)``
+    over n slots on `device` for each n of DRYRUN_SLOTS.  -> (the entry
+    step's launches, the dryruns' launches, the figures of the
+    {"entry": ...} line)."""
+    import torch
+
+    from banyandb_tpu_torch import entry
+    from banyandb_tpu_torch.query.measure_exec import device_get
+
+    hk.reset_launches()
+    step, args = entry.entry(device)
+    t0 = time.perf_counter()
+    got = device_get(step(*args))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    device_get(step(*args))
+    second_ms = (time.perf_counter() - t0) * 1e3
+    entry_launches = dict(hk.LAUNCHES)
+    cstep, cargs = entry.entry("cpu")
+    want = device_get(cstep(*cargs))
+    check(sorted(got) == sorted(want), f"entry: outputs {sorted(got)} != {sorted(want)}")
+    exact = [("count", got["count"], want["count"]), ("hist", got["hist"], want["hist"])]
+    exact += [(f"{k}[{f}]", got[k][f], want[k][f]) for k in ("mins", "maxs") for f in want[k]]
+    for name, a, b in exact:
+        check(np.array_equal(a, b), f"entry {name}: the card differs from the CPU")
+    err = 0.0
+    for f in want["sums"]:
+        a, b = np.asarray(got["sums"][f], np.float64), np.asarray(want["sums"][f], np.float64)
+        check(np.allclose(a, b, rtol=RTOL, atol=0.0), f"entry sums[{f}]: beyond rtol {RTOL}")
+        err = max(err, float(np.abs(a - b).max()))
+    log(f"  ok  entry step on {device}: count, min/max and histogram equal the CPU's, "
+        f"sums within rtol {RTOL} (max abs err {err!r}); {first_ms:.3f} / "
+        f"{second_ms:.3f} ms first / second call; launches {entry_launches}")
+    hk.reset_launches()
+    dry = {}
+    for n in DRYRUN_SLOTS:
+        t0 = time.perf_counter()
+        dry[n] = entry.dryrun_multichip(n, devices=[device] * n)
+        dry[n]["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        log(f"  ok  dryrun_multichip({n}) over {n} slots on one device "
+            f"{dry[n]['slots']} ({dry[n]['shape']}): count {dry[n]['count']} = host "
+            f"union, mesh fast path {dry[n]['cluster']}, {dry[n]['wall_ms']:.1f} ms")
+    dryrun_launches = dict(hk.LAUNCHES)
+    log(f"  kernel launches over the dryruns: {dryrun_launches}")
+    fig = {
+        "device": str(torch.device(device)),
+        "entry": {"outputs": {k: list(np.shape(v)) for k, v in got.items()
+                              if not isinstance(v, dict)},
+                  "first_ms": first_ms, "second_ms": second_ms,
+                  "sums_max_abs_err": err, "launches": entry_launches},
+        "dryrun": {str(n): d for n, d in dry.items()},
+        "dryrun_launches": dryrun_launches,
+    }
+    return entry_launches, dryrun_launches, fig
+
+
+def soak_phase(hk, device: str, root: str, seconds: float = SOAK_S) -> tuple:
+    """Phase 21: the replay soak for `seconds` over three topologies on
+    `device`: a standalone engine, a two-node cluster and a 2 x 2 mesh
+    of slots on the device.  -> (its launches, the figures of the
+    {"soak": ...} line)."""
+    from banyandb_tpu_torch.harness import soak
+
+    report = os.path.join(root, "soak-report.jsonl")
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    stats = soak.run_soak(seconds=seconds, seed=0, report_path=report,
+                          tmp_root=os.path.join(root, "soak"), device=device,
+                          mesh_slots=[device] * SOAK_MESH_SLOTS)
+    wall_s = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    text = ""
+    if os.path.exists(report):
+        with open(report) as f:
+            text = f.read()[-4000:]
+    check(stats["errors"] == 0, f"soak: {stats['errors']} failed queries\n{text}")
+    check(stats["divergences"] == 0, f"soak: {stats['divergences']} divergences\n{text}")
+    check(stats["queries"] > 0 and stats["writes"] > 0, f"soak: nothing ran {stats}")
+    check(stats["mesh_executions"] > 0, "soak: the mesh topology ran no query")
+    log(f"  ok  soak {wall_s:.1f} s: {stats['queries']} queries over 3 topologies, "
+        f"{stats['writes']} points written, 0 divergences, 0 errors; mesh step ran "
+        f"{stats['mesh_executions']} of them; hand-kernel launches by topology "
+        f"{stats['launches']}; {launches}")
+    return launches, {"wall_s": wall_s, **stats}
+
+
+def chaos_phase(hk, device: str, root: str) -> tuple:
+    """Phase 22: the chaos harness's five in-process phases with data
+    nodes and shard workers on `device`.  -> (this process's launches,
+    the figures of the {"chaos": ...} line)."""
+    from banyandb_tpu_torch.harness import chaos
+
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    stats = chaos.run_smoke(root, seed=CHAOS_SEED, device=device)
+    wall_s = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    windows = stats["worker_degraded_windows_s"]
+    for ok, what in (
+        (stats["kill_cycles"] >= 3, "kill_cycles >= 3"),
+        (stats["degraded_seen"] >= 1, "degraded_seen >= 1"),
+        (stats["faults_injected"] > 0, "faults_injected > 0"),
+        (stats["max_query_wall_s"] <= CHAOS_BUDGET_S, f"max_query_wall_s <= {CHAOS_BUDGET_S}"),
+        (stats["worker_kill_cycles"] >= 2, "worker_kill_cycles >= 2"),
+        (stats["worker_restarts"] >= 2, "worker_restarts >= 2"),
+        (max(windows) < CHAOS_WINDOW_S, f"worker degraded windows < {CHAOS_WINDOW_S} s"),
+        (stats["rebalance_under_kill"] >= 1, "rebalance_under_kill >= 1"),
+        (min(stats["acked_a"], stats["acked_c"], stats["worker_acked"],
+             stats["rebalance_acked"]) > 0, "acked writes in every phase"),
+    ):
+        check(ok, f"chaos: {what} fails: {stats}")
+    log(f"  ok  chaos smoke {wall_s:.1f} s: kill_cycles {stats['kill_cycles']}, "
+        f"degraded_seen {stats['degraded_seen']}, faults_injected "
+        f"{stats['faults_injected']} {stats['fault_sites']}, max_query_wall_s "
+        f"{stats['max_query_wall_s']!r}, worker_kill_cycles {stats['worker_kill_cycles']} "
+        f"(degraded windows {windows} s), rebalance parts moved "
+        f"{stats['rebalance_parts_moved']}; zero acked loss (acked "
+        f"{stats['acked_a']}/{stats['acked_c']}/{stats['worker_acked']}/"
+        f"{stats['rebalance_acked']}); launches here {launches}")
+    return launches, {"wall_s": wall_s, **stats}
+
+
+def load_phase(hk, device: str, root: str, seconds: float = LOAD_S) -> tuple:
+    """Phase 23: ``run_load`` on `device` for `seconds` (2 writers, 4
+    queriers, batches of 500, LOAD_RATE points/s), then the server
+    reopened over its root: a count over the whole window, from the
+    materialized windows and from a rescan, equals the acked points.
+    -> (its launches, the figures of the {"load": ...} line)."""
+    from banyandb_tpu_torch.harness import env_scope, load
+    from banyandb_tpu_torch.server import TOPIC_QL, StandaloneServer
+
+    data = os.path.join(root, "server")
+    hk.reset_launches()
+    stats = load.run_load(seconds=seconds, writers=2, queriers=4, batch=500, seed=0,
+                          write_rate=LOAD_RATE, tmp_root=data, device=device)
+    launches = dict(hk.LAUNCHES)
+    check(stats["write_errors"] == 0, f"load: {stats['write_errors']} write errors")
+    check(stats["query_errors"] == 0, f"load: {stats['query_errors']} query errors")
+    check(stats["queries"] > 0 and stats["points_written"] > 0, f"load: nothing ran {stats}")
+    ql = (f"SELECT count(value) FROM MEASURE {load.MEASURE} IN {load.GROUP} "
+          f"TIME BETWEEN {load.T0} AND {load.T0 + (1 << 40)}")
+    srv = StandaloneServer(data, device=device)
+    srv.start()
+    counts = {}
+    try:
+        for label, flag in (("materialized", "1"), ("rescan", "0")):
+            with env_scope({"BYDB_STREAMAGG": flag}):
+                r = srv.bus.handle(TOPIC_QL, {"ql": ql})
+            counts[label] = {"count": int(sum(r["result"]["values"].get("count", ()))),
+                             "served": r.get("served")}
+    finally:
+        srv.stop()
+    for label, c in counts.items():
+        check(c["count"] == stats["points_written"],
+              f"load: the {label} count {c['count']} != {stats['points_written']} acked")
+    fig = {"cores": os.cpu_count(), **stats, "count_back": counts}
+    log(f"  ok  load {stats['seconds']} s on {os.cpu_count()} cores: "
+        f"{stats['points_written']} points ({stats['write_points_per_min']} a minute), "
+        f"{stats['queries']} queries p50/p90/p99 {stats['latency_ms']} ms, served "
+        f"{stats['served']}, 0 errors; every acked point counted back {counts}; "
+        f"launches {launches}")
+    return launches, fig
+
+
 def main() -> int:
     try:
         import torch
@@ -4253,7 +4462,26 @@ def main() -> int:
         paths["sanitize"], sanitize_fig = lint_sanitize_phase(
             root, N_POINTS, "cuda", server_docs, server_fig)
     print(json.dumps({"lint_sanitize": sanitize_fig}), flush=True)
-    phase("[20] all phases done")
+    phase(f"[20] entry and dryrun: the flagship step against the CPU, "
+          f"dryrun_multichip{DRYRUN_SLOTS} over slots on the card")
+    paths["entry"], paths["dryrun"], entry_fig = entry_phase(hk, "cuda")
+    print(json.dumps({"entry": entry_fig}), flush=True)
+    with tempfile.TemporaryDirectory(prefix="bydb-smoke-soak-") as root:
+        phase(f"[21] soak: {SOAK_S} s of replayed queries over a standalone engine, "
+              f"a 2-node cluster and a 2 x 2 mesh on the card")
+        paths["soak"], soak_fig = soak_phase(hk, "cuda", root)
+    print(json.dumps({"soak": soak_fig}), flush=True)
+    with tempfile.TemporaryDirectory(prefix="bydb-smoke-chaos-") as root:
+        phase("[22] chaos smoke: kills, degradation, a fault schedule, worker kills "
+              "and a rebalance under a kill, on the card")
+        paths["chaos"], chaos_fig = chaos_phase(hk, "cuda", root)
+    print(json.dumps({"chaos": chaos_fig}), flush=True)
+    with tempfile.TemporaryDirectory(prefix="bydb-smoke-load-") as root:
+        phase(f"[23] load: {LOAD_S} s of 2 writers at {LOAD_RATE} points/s and 4 "
+              f"queriers through a gRPC-served server on the card")
+        paths["load"], load_fig = load_phase(hk, "cuda", root)
+    print(json.dumps({"load": load_fig}), flush=True)
+    phase("[24] all phases done")
     for path, kernels in PATH_KERNELS.items():
         for k in kernels:
             check(paths[path][k] > 0, f"{k}: not launched on the {path} path")

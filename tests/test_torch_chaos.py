@@ -1,100 +1,14 @@
-"""Chaos harness gate of the port (scripts/chaos.py, docs/robustness.md):
+"""Chaos harness gate of the port (harness/chaos.py, docs/robustness.md):
 the streaming-aggregation failover bar.  A data node behind the gRPC
 bus is killed mid-load under the liaison write queue and restarted over
 its root; the re-shipped parts must leave the materialized windows
 gap-free and single."""
 
 # Mirror of tests/test_chaos.py: the same contract, with the JAX
-# package's imports re-pointed at banyandb_tpu_torch.
+# package's imports re-pointed at banyandb_tpu_torch and the harness's
+# shared bits taken from the port's chaos harness.
 
-import time
-from types import SimpleNamespace
-
-# the harness's shared bits (scripts/chaos.py), re-pointed at the port
-
-
-T0 = 1_700_000_000_000
-
-
-def _schema(reg, group="cg", shard_num=3):
-    from banyandb_tpu_torch.api import (
-        Catalog,
-        Entity,
-        FieldSpec,
-        FieldType,
-        Group,
-        Measure,
-        ResourceOpts,
-        TagSpec,
-        TagType,
-    )
-
-    reg.create_group(Group(group, Catalog.MEASURE, ResourceOpts(shard_num=shard_num)))
-    reg.create_measure(
-        Measure(
-            group=group, name="m",
-            tags=(TagSpec("svc", TagType.STRING),),
-            fields=(FieldSpec("v", FieldType.FLOAT),),
-            entity=Entity(("svc",)),
-        )
-    )
-
-
-def _points(base: int, n: int, mod: int = 8):
-    from banyandb_tpu_torch.api import DataPointValue
-
-    return tuple(
-        DataPointValue(
-            ts_millis=T0 + base + i,
-            tags={"svc": f"s{(base + i) % mod}"},
-            fields={"v": 1.0},
-            version=1,
-        )
-        for i in range(n)
-    )
-
-
-def _count_req(trace=False):
-    from banyandb_tpu_torch.api import (
-        Aggregation,
-        GroupBy,
-        QueryRequest,
-        TimeRange,
-    )
-
-    return QueryRequest(
-        groups=("cg",), name="m",
-        time_range=TimeRange(T0, T0 + 50_000_000),
-        group_by=GroupBy(("svc",)),
-        agg=Aggregation("count", "v"),
-        trace=trace,
-    )
-
-
-def _total(res) -> int:
-    return int(sum(res.values.get("count", [])))
-
-
-def _bind_server(bus, port, sync_install=None, attempts=40):
-    """GrpcBusServer on a FIXED port, retrying while the previous
-    incarnation's socket drains (restart-on-same-port, the address every
-    cached liaison channel and discovery entry still points at)."""
-    from banyandb_tpu_torch.cluster.rpc import GrpcBusServer
-
-    for i in range(attempts):
-        srv = GrpcBusServer(bus, port=port, sync_install=sync_install)
-        if srv.port == port or port == 0:
-            srv.start()
-            return srv
-        srv.stop(grace=0)
-        time.sleep(0.1)
-    raise RuntimeError(f"could not rebind port {port}")
-
-
-chaos = SimpleNamespace(
-    _schema=_schema, _points=_points, _count_req=_count_req,
-    _bind_server=_bind_server,
-)
+from banyandb_tpu_torch.harness import chaos
 
 
 def test_streamagg_failover_windows_gap_free(tmp_path, monkeypatch):

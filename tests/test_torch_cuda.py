@@ -1078,3 +1078,33 @@ def test_data_role_command_on_card(dev, tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=60)
+
+
+def test_chaos_soak_on_card(dev, tmp_path):
+    """``python -m banyandb_tpu_torch.harness.chaos --soak 60``: three
+    ``--role data`` children on the card (one kernel build cache for
+    all) and a liaison under SIGKILL cycles; every invariant holds and
+    the artifact says so."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    pytest.importorskip("grpc")
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo),
+               BYDB_COMPILE_CACHE_DIR=str(tmp_path / "build-cache"))
+    out = tmp_path / "chaos.json"
+    run = subprocess.run(
+        [sys.executable, "-m", "banyandb_tpu_torch.harness.chaos", "--soak", "60",
+         "--artifact", str(out)],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=900,
+    )
+    assert run.returncode == 0, run.stdout[-4000:] + run.stderr[-4000:]
+    assert "chaos: all invariants held" in run.stdout
+    stats = json.loads(out.read_text())
+    assert stats["kill_cycles"] >= 3
+    assert stats["degraded_seen"] >= 1
+    assert stats["acked"] > 0
+    assert stats["max_query_wall_s"] <= 15.0

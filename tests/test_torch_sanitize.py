@@ -599,7 +599,7 @@ def test_smoke_lint_sanitize_phase_on_cpu(tmp_path, monkeypatch):
     gate = fig["gate"]
     assert gate["findings"] == {}
     assert gate["suppressed"] == {
-        "host-sync": 8, "resource-hygiene": 5, "retry-backoff": 1,
+        "host-sync": 8, "resource-hygiene": 5, "retry-backoff": 2,
         "wp-lock-blocking": 1, "wp-shared-state": 7,
     }
     assert fig["undeclared_edges"] == [] and fig["leaks"] == "clean"

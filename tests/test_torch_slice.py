@@ -418,8 +418,20 @@ _ISOLATION = textwrap.dedent(
             f.write('[{"name": "n0", "addr": "127.0.0.1:1", "roles": ["data"]}]')
         assert [n.name for n in discovery.FileDiscovery(nodes).nodes()] == ["n0"]
     assert wqueue.WriteQueue and SchemaWatchClient
+    # the driver entry point and the operating harnesses: no grpc until a
+    # server or transport is built, and nothing of the repo's scripts
+    from banyandb_tpu_torch import entry
+    from banyandb_tpu_torch.harness import chaos, load, soak
+    step, args = entry.entry(device="cpu")
+    assert tuple(step(*args)["count"].shape) == (64,)
+    with tempfile.TemporaryDirectory() as root:
+        st = soak.run_soak(iterations=5, tmp_root=root, device="cpu",
+                           mesh_slots=["cpu"] * 2)
+        assert st["queries"] == 5 and st["divergences"] == st["errors"] == 0, st
+    assert chaos.run_smoke and chaos.run_soak and load.run_load
     bad = sorted(k for k in sys.modules
-                 if k in ("jax", "grpc") or k.startswith(
+                 if k in ("jax", "grpc", "__graft_entry__", "_driver_env",
+                          "soak", "chaos", "load") or k.startswith(
                      ("jax.", "banyandb_tpu.", "grpc.", "google.protobuf")))
     assert not bad, bad
     print("isolated")
